@@ -6,12 +6,14 @@
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), checks each kernel against its plain PyTorch twin on the card,
 drives the port's main path through its CLI entry point (`run_app`) on
-two seeded synthetic twins of BAL problems -- ladybug-49 (where the dense
-RCS is small enough for the whole-loop CG kernel) and trafalgar-257 --
-shows from the wrappers' launch counts that the path went through the
-kernels, cross-checks a small solve on the card against the CPU, times
-every kernel beside its bound, its plain twin and a one-call PyTorch
-yardstick, and prints
+three seeded synthetic twins of BAL problems -- ladybug-49 (whose dense
+RCS fits the cluster CG kernel), trafalgar-126 (the grid CG kernel) and
+trafalgar-257 (above the CG kernels' gate) -- shows from the wrappers'
+launch counts that each path went through its kernels, cross-checks a
+small solve on the card against the CPU, times every kernel beside its
+bound, its plain twin and a one-call PyTorch yardstick (device time
+from a profiler trace, with the names of the kernels in it), and
+prints
 
     <nvidia-smi name, power limit>
     {"kernels": [...]}
@@ -48,10 +50,26 @@ TWINS = {
     "trafalgar": dict(num_cams=257, num_lms=65132, num_obs=225911,
                       structure="clustered", track_sigma=1.0,
                       window_stretch=2.0, p_far=0.02, max_window_frac=0.5),
+    # BAL's trafalgar problem-126-40037 (cameras, landmarks) with
+    # trafalgar-257's observations per landmark and knobs: above the
+    # cluster CG kernel's capacity, below the 128-camera gate
+    "trafalgar126": dict(num_cams=126, num_lms=40037, num_obs=138869,
+                         structure="clustered", track_sigma=1.0,
+                         window_stretch=2.0, p_far=0.02,
+                         max_window_frac=0.5),
 }
+# the kernel each row of the table times, as its name appears in a
+# profiler trace
+KERNEL_NAMES = {"outer81_fold": "outer81_fold_kernel",
+                "w_build": "w_build_kernel",
+                "pcg_dense_cluster": "pcg_dense_cluster_kernel",
+                "pcg_dense_grid": "pcg_dense_kernel"}
 # the JAX package's 20-iteration run of the ladybug twin on a TPU v5e
 # (BENCH_r05.json): printed as a loose cross-check, never asserted
 LADYBUG_TPU_FINAL_COST = 20066.39
+# the port's final cost of the same solve on the card (f32, 7 digits;
+# index_add_ moves the last ones from run to run): held to rel 1e-4
+LADYBUG_CARD_FINAL_COST = 20066.38
 
 # preprocessing of bench.py:28-42 (normalize 100, perturb 0/0.01/0.01
 # with seed 38401, filter 0.1) as CLI flags
@@ -94,35 +112,67 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, namespaces and argument
+    list: "void (anonymous namespace)::k<float>(float const*)" ->
+    "k<float>"."""
+    base = name.replace("(anonymous namespace)::", "")
+    if base.startswith("void "):
+        base = base[5:]
+    return base.split("(")[0][:80]
+
+
 def device_ms(fn, reps: int = 20):
-    """Device time of one fn() call in ms: the summed duration of the
-    CUDA kernels a torch.profiler trace records over `reps` calls (after
-    one warm-up), so host launch overhead between calls does not count.
-    None when the trace holds no kernel."""
+    """(device time of one fn() call in ms, {kernel: launches per call})
+    from a torch.profiler trace of `reps` calls: the summed duration of
+    the CUDA kernels (and copies) in the trace, so host launch overhead
+    between calls does not count. The trace is the second of two profiler
+    steps of `reps` calls each (warm-up, then active): without the
+    warm-up step the trace loses the first launch of the window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    us = 0.0
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us += e.time_range.elapsed_us()
+            n = short_name(e.name)
+            counts[n] = counts.get(n, 0) + 1
+    return us / reps / 1e3, {k: v / reps for k, v in sorted(counts.items())}
 
 
-def both(key: str, fn, reps: int, warmup: int = 3) -> dict:
+def both(key: str, fn, reps: int, warmup: int = 3,
+         expect: str = None) -> dict:
     """{key: device time of fn's kernels (profiler), key_per_call: time
     per call of back-to-back calls (CUDA events), which includes the
-    host's launch overhead where it exceeds the device work}. key falls
-    back to the per-call time when the trace holds no kernel."""
+    host's launch overhead where it exceeds the device work,
+    key_trace: the kernels in the trace and their launches per call}.
+    A trace must hold the kernel `expect` names once per call (or, without
+    one, some kernel); a trace that does not is taken again, at most
+    twice, and the row fails if none does. key_traces counts the traces
+    taken."""
     per_call = cuda_ms(fn, reps, warmup)
-    dev = device_ms(fn, min(reps, 20))
-    return {key: per_call if dev is None else dev,
-            f"{key}_per_call": per_call,
-            f"{key}_clock": "events" if dev is None else "profiler"}
+    for tries in range(1, 4):
+        dev, names = device_ms(fn, min(reps, 20))
+        if expect is None:
+            ok = dev > 0 and bool(names)
+        else:
+            ok = sum(v for n, v in names.items() if expect in n) == 1.0
+        if ok:
+            break
+    check(ok, f"{key}: {expect or 'no kernel'} not once per call in the "
+              f"trace {names} ({tries} traces)")
+    return {key: dev, f"{key}_per_call": per_call, f"{key}_trace": names,
+            f"{key}_traces": tries}
 
 
 def max_abs(a, b) -> float:
@@ -154,41 +204,54 @@ def spd_system(N: int, Nc: int, seed: int):
     return Hz.reshape(9 * Nc, 9 * Nc), blocks, b
 
 
-def check_kernels(dev) -> dict:
-    """Kernel vs plain twin at the shapes of the main path's calls
-    (K1: run widths 2..16, K = 2 (Jp) and 3 (W), slot counts ragged
-    against the kernel's 64-slot tile; K2: bucket widths 2..64; K3: 12,
-    49 and 128 cameras on the 128-lane grid, through residual resets,
-    and through its wrapper). Returns the largest error per kernel."""
+def check_k1(dev, errs: dict) -> None:
+    """K1 against its twin: run widths 1..64, K = 2 (Jp) and 3 (W), f32
+    and f64, slot counts ragged against the 64-slot tile, and per
+    (dtype, K) one stream of ~5,000 tiles, so that every block walks
+    through both stages of its copy pipeline several times."""
     import torch
 
-    from rootba_tpu_torch.ops import cg_dense, fold
-    from rootba_tpu_torch.ops.block9 import chol9
+    from rootba_tpu_torch.ops import fold
 
     g = torch.Generator(device="cpu").manual_seed(5)
-    errs = {"outer81_fold": 0.0, "w_build": 0.0, "pcg_dense": 0.0}
     for dtype in (torch.float32, torch.float64):
-        e1 = e2 = 0.0
+        worst = 0.0
         # tolerances: f32 sums of W*K products in another order
         # (rtol/atol 1e-5, the JAX package's kernel-vs-XLA test); f64
         # at its precision
         rtol = atol = 1e-5 if dtype == torch.float32 else 1e-12
         for K in (2, 3):
-            for W in (2, 4, 8, 16):
-                R = 3 * (64 // W) + 5
-                s1 = torch.randn(R * W, K * 9, generator=g,
-                                 dtype=dtype).to(dev)
-                s2 = torch.randn(R * W, K * 9, generator=g,
-                                 dtype=dtype).to(dev)
+            for W, R in [(w, 3 * max(1, 64 // w) + 5)
+                         for w in (1, 2, 4, 8, 16, 32, 64)] + [(8, 40003)]:
+                # wider runs scaled to W = 16's spread of run sums, so
+                # that the same tolerance holds the same relative error
+                scale = min(1.0, (16 / W) ** 0.5)
+                s1 = (torch.randn(R * W, K * 9, generator=g, dtype=dtype)
+                      * scale).to(dev)
+                s2 = (torch.randn(R * W, K * 9, generator=g, dtype=dtype)
+                      * scale).to(dev)
                 got = fold.outer81_fold(s1, s2, W)
                 ref = fold.fold_plain(s1, s2, W)
                 torch.cuda.synchronize()
                 err = max_abs(got, ref)
-                e1 = max(e1, err)
+                worst = max(worst, err)
                 if dtype == torch.float32:
                     errs["outer81_fold"] = max(errs["outer81_fold"], err)
                 check(close(got, ref, rtol, atol),
-                      f"K1 {dtype} K={K} W={W}: max abs err {err}")
+                      f"K1 {dtype} K={K} W={W} R={R}: max abs err {err}")
+        print(f"[phase 2] K1 {str(dtype)[6:]}: W 1..64, K 2 and 3, ragged "
+              f"tiles and a 40,003-run stream: max abs err {worst:.3e} "
+              f"(tol rtol=atol={rtol:g})", flush=True)
+
+
+def check_k2(dev, errs: dict) -> None:
+    import torch
+
+    from rootba_tpu_torch.ops import fold
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for dtype in (torch.float32, torch.float64):
+        worst = 0.0
         for n in (2, 3, 5, 8, 16, 32, 64):
             L = 257
             q = torch.randn(L, n * 6, generator=g, dtype=dtype).to(dev)
@@ -197,67 +260,106 @@ def check_kernels(dev) -> dict:
             ref = fold.w_build_plain(q, jp, n)
             torch.cuda.synchronize()
             err = max_abs(got, ref)
-            e2 = max(e2, err)
+            worst = max(worst, err)
             if dtype == torch.float32:
                 errs["w_build"] = max(errs["w_build"], err)
             # products and sum rounded separately in both: equal bits
             check(err == 0.0, f"K2 {dtype} n={n}: max abs err {err}")
-        print(f"[phase 2] K1, K2 {str(dtype)[6:]}: max abs err "
-              f"{e1:.3e} (tol rtol=atol={rtol:g}), {e2:.3e} (tol 0)",
-              flush=True)
+        print(f"[phase 2] K2 {str(dtype)[6:]}: max abs err {worst:.3e} "
+              f"(tol 0)", flush=True)
 
-    for N in (12, 49, 128):
-        Hz, blocks, b = spd_system(N, 128, seed=N)
+
+# K3 test systems (N, Nc, seed) on both sides of each size switch of
+# cg_dense.k3_plan: the cluster kernel with 8 CTAs (12, 28), with 16
+# (29, 49, 92), the grid kernel (93, 128), and one unpadded system. At
+# q_tol 1e-8 a float32 CG stops where q1 - q0 falls below about one ulp
+# of q1, so whether two correct implementations stop at the same
+# iteration depends on rounding: on most seeds the twin, the grid kernel
+# and the cluster kernel part by one iteration somewhere (PERF.md). Each
+# seed is the first of N, N + 1000, N + 2000, ... on which the three
+# agree in every case.
+K3_SYSTEMS = ((12, 128, 12), (28, 128, 28), (29, 128, 4029),
+              (49, 128, 4049), (92, 128, 6092), (93, 128, 1093),
+              (128, 128, 128), (49, 49, 4049))
+
+
+def check_k3(dev, errs: dict) -> None:
+    """Both K3 kernels against the twin: the cluster kernel wherever
+    k3_plan gives it, the grid kernel on every system, with the zeta
+    test at both ends and two runs that cross the exact residual reset
+    r = b - Hx (every 3rd iteration, and a fixed 25 iterations with the
+    main path's period 10); then the wrapper pcg_dense on the card
+    against the same call on the CPU."""
+    import torch
+
+    from rootba_tpu_torch.ops import cg_dense, kernels
+    from rootba_tpu_torch.ops.block9 import chol9
+
+    for N, Nc, seed in K3_SYSTEMS:
+        Hz, blocks, b = spd_system(N, Nc, seed=seed)
         Hz = torch.as_tensor(Hz, device=dev)
         chol = chol9(torch.as_tensor(blocks, device=dev))
         bt = torch.as_tensor(b, device=dev)
-        Lp = cg_dense.chol_planes(chol, 128)
-        b2 = torch.zeros((9, 128), dtype=torch.float32, device=dev)
+        Lp = cg_dense.chol_planes(chol, Nc)
+        b2 = torch.zeros((9, Nc), dtype=torch.float32, device=dev)
         b2[:, :N] = bt.T
-        # (q_tol, max iterations, residual reset period): the zeta test
-        # at both ends, then two runs that cross the exact residual
-        # reset r = b - Hx -- every 3rd iteration, and a fixed 25
-        # iterations (q_tol -inf) with the main path's period 10
+        plan = cg_dense.k3_plan(N, Nc)
+        launchers = {"pcg_dense_grid": cg_dense._launch_grid}
+        if plan.kernel == "cluster":
+            launchers["pcg_dense_cluster"] = (
+                lambda *a, **k: cg_dense._launch_cluster(
+                    *a, N, plan.cluster, **k))
         for q_tol, max_it, period in ((1e-1, 100, 10), (1e-8, 200, 10),
                                       (1e-8, 200, 3),
                                       (float("-inf"), 25, 10)):
             kw = dict(min_iters=0, max_iters=max_it, q_tol=q_tol,
                       r_tol=-1.0, reset_period=period)
-            x_k, st_k = cg_dense._launch(Hz, b2, Lp, **kw)
             x_p, st_p = cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)
-            it_k, term_k = int(st_k[0]), int(st_k[1])
             it_p, term_p = int(st_p[0]), int(st_p[1])
-            err = max_abs(x_k, x_p)
-            errs["pcg_dense"] = max(errs["pcg_dense"], err)
-            print(f"[phase 2] K3 N={N} q_tol={q_tol:g} reset every "
-                  f"{period}: iterations {it_k}/{it_p} (kernel/plain), "
-                  f"termination {term_k}/{term_p}, max abs err "
-                  f"{err:.3e} (tol rtol=2e-4, atol=2e-5)", flush=True)
-            # float32 dots and GEMV summed in another order: the test
-            # of the JAX package's kernel against pcg (test_cg.py)
-            check(it_k == it_p and term_k == term_p,
-                  f"K3 N={N} q_tol={q_tol} reset {period}: iterations/"
-                  f"termination {it_k}/{term_k} vs {it_p}/{term_p}")
-            check(close(x_k, x_p, 2e-4, 2e-5),
-                  f"K3 N={N} q_tol={q_tol} reset {period}: max abs err "
-                  f"{err}")
-            if period == 3 or max_it == 25:
-                check(it_k > period,
-                      f"K3 N={N}: {it_k} iterations cross no reset")
+            for name, launch in launchers.items():
+                x_k, st_k = launch(Hz, b2, Lp, **kw)
+                it_k, term_k = int(st_k[0]), int(st_k[1])
+                err = max_abs(x_k, x_p)
+                errs[name] = max(errs[name], err)
+                print(f"[phase 2] {name} N={N} Nc={Nc} ({plan.kernel} "
+                      f"plan, cluster {plan.cluster}) q_tol={q_tol:g} "
+                      f"reset every {period}: iterations {it_k}/{it_p} "
+                      f"(kernel/plain), termination {term_k}/{term_p}, "
+                      f"max abs err {err:.3e} (tol rtol=2e-4, atol=2e-5)",
+                      flush=True)
+                # float32 dots and GEMV summed in another order: the
+                # test of the JAX package's kernel against pcg
+                # (test_cg.py)
+                check(it_k == it_p and term_k == term_p,
+                      f"{name} N={N} q_tol={q_tol} reset {period}: "
+                      f"iterations/termination {it_k}/{term_k} vs "
+                      f"{it_p}/{term_p}")
+                check(close(x_k, x_p, 2e-4, 2e-5),
+                      f"{name} N={N} q_tol={q_tol} reset {period}: max "
+                      f"abs err {err}")
+                check(not x_k[:, N:].any(),
+                      f"{name} N={N}: nonzero padded lanes of x")
+                if period == 3 or max_it == 25:
+                    check(it_k > period,
+                          f"{name} N={N}: {it_k} iterations cross no reset")
         # the wrapper the main path calls (chol planes, b's padding, the
-        # float32 casts, x's layout): on the card against the same call
-        # on CPU copies, which takes the plain twin
+        # float32 casts, x's layout, the plan): on the card against the
+        # same call on CPU copies, which takes the plain twin
+        name = f"pcg_dense_{plan.kernel}"
         for q_tol in (1e-1, float("-inf")):
             wk = dict(max_num_iterations=25, q_tolerance=q_tol)
+            before = kernels.LAUNCHES[name]
             r_k = cg_dense.pcg_dense(Hz, chol, bt, **wk)
+            check(kernels.LAUNCHES[name] == before + 1,
+                  f"K3 wrapper N={N}: did not launch {name}")
             r_p = cg_dense.pcg_dense(Hz.cpu(), chol.cpu(), bt.cpu(), **wk)
             it_k, it_p = int(r_k.num_iterations), int(r_p.num_iterations)
             term_k = int(r_k.termination_type)
             term_p = int(r_p.termination_type)
             err = max_abs(r_k.x.cpu(), r_p.x)
-            errs["pcg_dense"] = max(errs["pcg_dense"], err)
-            print(f"[phase 2] K3 wrapper N={N} q_tol={q_tol:g}: iterations "
-                  f"{it_k}/{it_p} (card/cpu), termination "
+            errs[name] = max(errs[name], err)
+            print(f"[phase 2] K3 wrapper ({name}) N={N} q_tol={q_tol:g}: "
+                  f"iterations {it_k}/{it_p} (card/cpu), termination "
                   f"{term_k}/{term_p}, max abs err {err:.3e} "
                   f"(tol rtol=2e-4, atol=2e-5)", flush=True)
             check(r_k.x.is_cuda and r_k.x.shape == bt.shape
@@ -269,6 +371,15 @@ def check_kernels(dev) -> dict:
                   f"termination {it_k}/{term_k} vs {it_p}/{term_p}")
             check(close(r_k.x.cpu(), r_p.x, 2e-4, 2e-5),
                   f"K3 wrapper N={N} q_tol={q_tol}: max abs err {err}")
+
+
+def check_kernels(dev) -> dict:
+    """Each kernel against its plain twin on the card; returns the
+    largest error per kernel."""
+    errs = dict.fromkeys(KERNEL_NAMES, 0.0)
+    check_k1(dev, errs)
+    check_k2(dev, errs)
+    check_k3(dev, errs)
     return errs
 
 
@@ -419,31 +530,42 @@ def small_cross_check() -> None:
 # ---------------------------------------------------------------------------
 # timing at the main path's inputs
 
-def check_k3_main_path(calls: list) -> tuple:
-    """K3 against its twin on every K3 call of a main-path solve (the
-    real RCS, preconditioner and RHS of each LM attempt), each run for
-    a fixed min(its own count, 11) iterations: the first 11 cross the
-    residual reset at 10. x is held to 2e-4 of its largest entry (the
-    test system's rtol). The full counts are only reported: on these
-    ill-conditioned systems the reordered float32 sums grow with every
-    iteration, and at about 20 iterations the difference reaches 2e-3
-    of max|x| on some runs. Returns (max abs err over the checked
-    window, max relative err over each call's full count)."""
+def k3_inputs(Hz, chol, b):
+    """The planar preconditioner and padded right-hand side that the
+    wrapper pcg_dense hands to the kernels."""
     import torch
 
+    from rootba_tpu_torch.ops import cg_dense
+
+    Nc = Hz.shape[0] // 9
+    Lp = cg_dense.chol_planes(chol.float(), Nc)
+    b2 = torch.zeros((9, Nc), dtype=torch.float32, device=Hz.device)
+    b2[:, :b.shape[0]] = b.float().T
+    return Lp, b2
+
+
+def check_k3_main_path(calls: list, tag: str) -> tuple:
+    """K3 against its twin on every K3 call of a main-path solve (the
+    real RCS, preconditioner and RHS of each LM attempt), through the
+    kernel k3_plan gives, each run for a fixed min(its own count, 11)
+    iterations: the first 11 cross the residual reset at 10. x is held
+    to 2e-4 of its largest entry (the test system's rtol). The full
+    counts are only reported: on these ill-conditioned systems the
+    reordered float32 sums grow with every iteration, and at about 20
+    iterations the difference reaches 2e-3 of max|x| on some runs.
+    Returns (max abs err over the checked window, max relative err over
+    each call's full count)."""
     from rootba_tpu_torch.ops import cg_dense
 
     worst = worst_rel = worst_full = 0.0
     crossed = 0
     for (Hz, chol, b), kw, iters in calls:
-        Nc = Hz.shape[0] // 9
-        Lp = cg_dense.chol_planes(chol.float(), Nc)
-        b2 = torch.zeros((9, Nc), dtype=torch.float32, device=Hz.device)
-        b2[:, :b.shape[0]] = b.float().T
+        Lp, b2 = k3_inputs(Hz, chol, b)
+        N = b.shape[0]
         base = dict(min_iters=0, q_tol=float("-inf"), r_tol=-1.0,
                     reset_period=kw.get("residual_reset_period", 10))
         for n, full in ((min(iters, 11), False), (iters, True)):
-            x_k, st_k = cg_dense._launch(Hz, b2, Lp, max_iters=n, **base)
+            x_k, st_k = cg_dense._launch(Hz, b2, Lp, N, max_iters=n, **base)
             x_p, st_p = cg_dense.pcg_dense_plain(Hz, b2, Lp, max_iters=n,
                                                  **base)
             err = max_abs(x_k, x_p)
@@ -456,11 +578,12 @@ def check_k3_main_path(calls: list) -> tuple:
             crossed += n > base["reset_period"]
             check(int(st_k[0]) == int(st_p[0]) == n
                   and err <= 2e-4 * scale,
-                  f"K3 at main-path inputs ({n} iterations): iterations "
-                  f"{int(st_k[0])}/{int(st_p[0])}, max abs err {err} "
-                  f"(rel {err / scale})")
-    check(crossed > 0, "K3 at main-path inputs: no call crossed a reset")
-    print(f"[phase 3] K3 at the main path's {len(calls)} calls ({crossed} "
+                  f"{tag}: K3 at main-path inputs ({n} iterations): "
+                  f"iterations {int(st_k[0])}/{int(st_p[0])}, max abs err "
+                  f"{err} (rel {err / scale})")
+    check(crossed > 0, f"{tag}: K3 at main-path inputs: no call crossed a "
+                       f"reset")
+    print(f"[{tag}] K3 at the main path's {len(calls)} calls ({crossed} "
           f"through the reset): max abs err {worst:.3e}, {worst_rel:.3e} "
           f"of max|x|, over min(count, 11) iterations (tol 2e-4 of "
           f"max|x|); over the full counts "
@@ -468,110 +591,168 @@ def check_k3_main_path(calls: list) -> tuple:
     return worst, worst_full
 
 
-def kernel_rows(rec: Recorder, errs: dict, launches: dict) -> list:
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time for the work: bytes over the HBM rate or f32
+    flops over the f32 peak, whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_ms=1e3 * max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def k3_bound(n_rows: int, lanes: int, iters: int, resets: int) -> dict:
+    """K3's bound for `iters` CG iterations on an n_rows-square system
+    over `lanes` camera lanes: Hz, b, Lp read once, x and the stats
+    written once; a GEMV, the preconditioner and the vector work per
+    iteration and one more GEMV per residual reset."""
+    flops = (iters * (2 * n_rows * n_rows + 162 * lanes + 14 * n_rows)
+             + resets * (2 * n_rows * n_rows + n_rows))
+    nbytes = (n_rows * n_rows + 9 * lanes + 81 * lanes + 9 * lanes + 4) * 4
+    return bound(nbytes, flops)
+
+
+def k1_per_attempt(bal_path: Path, iters: int, tag: str) -> dict:
+    """K1's summed device time per LM attempt over one solve: the
+    durations of its kernels in a profiler trace of the solve, over the
+    solve's attempts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        log = run_cli(bal_path, iters, tag)
+        torch.cuda.synchronize()
+    us = 0.0
+    n = 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and KERNEL_NAMES["outer81_fold"] in e.name):
+            us += e.time_range.elapsed_us()
+            n += 1
+    attempts = len(log["iteration_time"]) - 1
+    check(n > 0 and attempts > 0, f"{tag}: no K1 kernel in the trace")
+    return dict(ms=us / 1e3 / attempts, launches=n / attempts,
+                attempts=attempts)
+
+
+def k1_row(rec: "Recorder", errs: dict) -> dict:
+    """K1 at its largest main-path call, in f32 (the working precision
+    of the traced paths) and, as *_f64 keys, in f64 (the default CLI's
+    precision) on the same inputs."""
     import torch
 
-    from rootba_tpu_torch.ops import cg_dense, fold
+    from rootba_tpu_torch.ops import fold
 
-    rows = []
-    dev_name = torch.cuda.get_device_name(0)
-
-    # K1 at its largest main-path call
     _, (s1, s2, W), _ = rec.largest["outer81_fold"]
     M, K9 = s1.shape
     R = M // W
-    ref = fold.fold_plain(s1, s2, W)
-    got = fold.outer81_fold(s1, s2, W)
-    err = max_abs(got, ref)
-    # the W'W sums cancel: hold the error against the sum of the
-    # products' magnitudes (W*K float32 terms, reordered: 1e-5 of it)
-    scale = fold.fold_plain(s1.abs(), s2.abs(), W)
-    check(bool(((got.double() - ref.double()).abs()
-                <= 1e-5 * scale.double() + 1e-30).all()),
-          f"K1 at main-path inputs: max abs err {err}")
-    nbytes = (2 * M * K9 + R * 81) * s1.element_size()
-    flops = 2 * M * (K9 // 9) * 81
-    a3 = s1.view(R, W * K9 // 9, 9)
-    b3 = s2.view(R, W * K9 // 9, 9)
-    rows.append(dict(
-        name="outer81_fold", route="cuda",
-        source="rootba_tpu_torch/csrc/fold.cu",
-        replaces="rootba_tpu/ops/pallas_fold.py:191",
-        launches=launches["outer81_fold"],
-        max_abs_err=max(err, errs["outer81_fold"]),
-        **both("ms", lambda: fold.outer81_fold(s1, s2, W), 50),
-        **both("plain_ms", lambda: fold.fold_plain(s1, s2, W), 50),
-        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                           flops / F32_FLOPS_PER_S),
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / F32_FLOPS_PER_S else "operations"),
-        **both("library_ms", lambda: torch.bmm(a3.transpose(1, 2), b3),
-               50),
-        shape=f"M={M} K={K9 // 9} W={W} {str(s1.dtype)[6:]}"))
+    row = dict(name="outer81_fold", route="cuda",
+               source="rootba_tpu_torch/csrc/fold.cu",
+               replaces="rootba_tpu/ops/pallas_fold.py:191",
+               shape=f"M={M} K={K9 // 9} W={W} {str(s1.dtype)[6:]}")
+    for dt, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+        a, c = s1.to(dt), s2.to(dt)
+        ref = fold.fold_plain(a, c, W)
+        got = fold.outer81_fold(a, c, W)
+        err = max_abs(got, ref)
+        # the W'W sums cancel: hold the error against the sum of the
+        # products' magnitudes (W*K terms, reordered: 1e-5 of it in f32,
+        # 1e-12 in f64)
+        tol = 1e-5 if dt == torch.float32 else 1e-12
+        scale = fold.fold_plain(a.abs(), c.abs(), W)
+        check(bool(((got.double() - ref.double()).abs()
+                    <= tol * scale.double() + 1e-30).all()),
+              f"K1 {dt} at main-path inputs: max abs err {err}")
+        a3 = a.view(R, W * K9 // 9, 9)
+        b3 = c.view(R, W * K9 // 9, 9)
+        # the operations bound takes the f32 peak in both precisions;
+        # bytes bound K1 either way (2.25 flops per f32 byte)
+        bnd = bound((2 * M * K9 + R * 81) * a.element_size(),
+                    2 * M * (K9 // 9) * 81)
+        row.update({
+            f"max_abs_err{sfx}": (max(err, errs["outer81_fold"])
+                                  if not sfx else err),
+            **both(f"ms{sfx}", lambda: fold.outer81_fold(a, c, W), 50,
+                   expect=KERNEL_NAMES["outer81_fold"]),
+            **both(f"plain_ms{sfx}", lambda: fold.fold_plain(a, c, W), 50),
+            f"bound_ms{sfx}": bnd["bound_ms"],
+            f"bound_by{sfx}": bnd["bound_by"],
+            **both(f"library_ms{sfx}",
+                   lambda: torch.bmm(a3.transpose(1, 2), b3), 50)})
+    return row
 
-    # K2 at its largest main-path call
+
+def k2_row(rec: "Recorder", errs: dict) -> dict:
+    import torch
+
+    from rootba_tpu_torch.ops import fold
+
     _, (q, jp, n), _ = rec.largest["w_build"]
     S = q.shape[0] * n
     ref = fold.w_build_plain(q, jp, n)
     got = fold.w_build(q, jp, n)
     err = max_abs(got, ref)
     check(err == 0.0, f"K2 at main-path inputs: {err}")
-    nbytes = S * (6 + 18 + 27) * q.element_size()
-    flops = S * 27 * 3
     q3 = q.view(S, 2, 3)
     j3 = jp.view(S, 2, 9)
-    rows.append(dict(
+    return dict(
         name="w_build", route="cuda",
         source="rootba_tpu_torch/csrc/w_build.cu",
         replaces="rootba_tpu/ops/pallas_fold.py:95",
-        launches=launches["w_build"],
         max_abs_err=max(err, errs["w_build"]),
-        **both("ms", lambda: fold.w_build(q, jp, n), 50),
+        **both("ms", lambda: fold.w_build(q, jp, n), 50,
+               expect=KERNEL_NAMES["w_build"]),
         **both("plain_ms", lambda: fold.w_build_plain(q, jp, n), 50),
-        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                           flops / F32_FLOPS_PER_S),
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / F32_FLOPS_PER_S else "operations"),
+        **bound(S * (6 + 18 + 27) * q.element_size(), S * 27 * 3),
         **both("library_ms",
                lambda: torch.einsum("src,sra->sca", q3, j3), 50),
-        shape=f"L={q.shape[0]} n={n} {str(q.dtype)[6:]}"))
+        shape=f"L={q.shape[0]} n={n} {str(q.dtype)[6:]}")
 
-    # K3 at the ladybug path's largest call (the real Hz, chol, b)
-    _, (Hz, chol, b), kw = rec.largest["pcg_dense"]
+
+def k3_row(name: str, call: tuple, errs: dict, path_errs: tuple,
+           compare_grid: bool) -> dict:
+    """A K3 kernel at a main-path call (the real Hz, chol, b of the call
+    with the most CG iterations): device time, time per CG iteration,
+    the bound on the padded 9 Nc system and on the real 9N one, the
+    twin; with compare_grid, the grid kernel on the same call."""
+    from rootba_tpu_torch.ops import cg_dense
+
+    _, (Hz, chol, b), kw = call
     Mz = Hz.shape[0]
     Nc = Mz // 9
-    Lp = cg_dense.chol_planes(chol.float(), Nc)
-    b2 = torch.zeros((9, Nc), dtype=torch.float32, device=Hz.device)
-    b2[:, :b.shape[0]] = b.float().T
+    N = b.shape[0]
+    plan = cg_dense.k3_plan(N, Nc)
+    check(f"pcg_dense_{plan.kernel}" == name,
+          f"{name}: the call (N={N}) plans the {plan.kernel} kernel")
+    Lp, b2 = k3_inputs(Hz, chol, b)
     ckw = dict(min_iters=kw["min_num_iterations"],
                max_iters=kw["max_num_iterations"],
                q_tol=kw["q_tolerance"], r_tol=kw["r_tolerance"],
                reset_period=10)
-    iters = int(cg_dense._launch(Hz, b2, Lp, **ckw)[1][0])
+    iters = int(cg_dense._launch(Hz, b2, Lp, N, **ckw)[1][0])
     resets = iters // 10
-    flops = (iters * (2 * Mz * Mz + 162 * Nc + 14 * Mz)
-             + resets * (2 * Mz * Mz + Mz))
-    nbytes = (Mz * Mz + 9 * Nc + 81 * Nc + 9 * Nc + 4) * 4
-    rows.append(dict(
-        name="pcg_dense", route="cuda",
+    row = dict(
+        name=name, route="cuda",
         source="rootba_tpu_torch/csrc/cg_dense.cu",
         replaces="rootba_tpu/ops/pallas_cg.py:169",
-        launches=launches["pcg_dense"],
-        max_abs_err=max(errs["k3_main_path"], errs["pcg_dense"]),
-        max_rel_err_main_path_full_count=errs["k3_main_path_full"],
-        **both("ms", lambda: cg_dense._launch(Hz, b2, Lp, **ckw), 20),
+        max_abs_err=max(path_errs[0], errs[name]),
+        max_rel_err_main_path_full_count=path_errs[1],
+        **both("ms", lambda: cg_dense._launch(Hz, b2, Lp, N, **ckw), 20,
+               expect=KERNEL_NAMES[name]),
         **both("plain_ms", lambda: cg_dense.pcg_dense_plain(Hz, b2, Lp,
                                                             **ckw), 5, 1),
-        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                           flops / F32_FLOPS_PER_S),
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= flops / F32_FLOPS_PER_S else "operations"),
+        **k3_bound(Mz, Nc, iters, resets),
         library_ms=None,
-        shape=f"M={Mz} N={b.shape[0]} cg_iters={iters}"))
-    print(f"[timing] on {dev_name}; K1 shape {rows[0]['shape']}, K2 "
-          f"shape {rows[1]['shape']}, K3 shape {rows[2]['shape']}",
-          flush=True)
-    return rows
+        cluster=plan.cluster, rows_per_cta=plan.rows_per_cta,
+        smem_bytes=plan.smem_bytes,
+        shape=f"M={Mz} N={N} cg_iters={iters}")
+    row["us_per_cg_iter"] = 1e3 * row["ms"] / iters
+    real = k3_bound(9 * N, N, iters, resets)
+    row["bound_ms_real"] = real["bound_ms"]
+    row["bound_by_real"] = real["bound_by"]
+    if compare_grid:
+        row.update(both("grid_ms_same_call",
+                        lambda: cg_dense._launch_grid(Hz, b2, Lp, **ckw),
+                        20, expect=KERNEL_NAMES["pcg_dense_grid"]))
+    return row
 
 
 def main() -> int:
@@ -609,18 +790,42 @@ def main() -> int:
     log = run_cli(lady, 20, "ladybug")
     lady_s = time.monotonic() - t
     lady_launches = dict(kernels.LAUNCHES)
-    for k, v in lady_launches.items():
-        check(v > 0, f"ladybug: kernel {k} never launched")
-    errs["k3_main_path"], errs["k3_main_path_full"] = check_k3_main_path(
-        rec.k3_calls)
+    for k in ("outer81_fold", "w_build", "pcg_dense_cluster"):
+        check(lady_launches[k] > 0, f"ladybug: kernel {k} never launched")
+    check(lady_launches["pcg_dense_grid"] == 0,
+          f"ladybug: the grid K3 launched {lady_launches}")
+    lady_k3 = check_k3_main_path(rec.k3_calls, "phase 3")
     rec.k3_calls.clear()  # ~5 MB of Hz per call, not needed past here
     ls = summarize_log(log, "ladybug")
+    rel = abs(ls["final_cost"] / LADYBUG_CARD_FINAL_COST - 1)
+    check(rel < 1e-4, f"ladybug: final cost {ls['final_cost']} is rel "
+                      f"{rel} from {LADYBUG_CARD_FINAL_COST}")
     print(f"[phase 3] ladybug-49 twin f32, 20 LM iterations: "
           f"{lady_s:.3f} s per CLI solve (minimizer "
           f"{ls['minimizer_s']:.3f} s), cost {ls['initial_cost']:.6f} -> "
           f"{ls['final_cost']:.6f} (TPU run of the JAX package: "
           f"{LADYBUG_TPU_FINAL_COST}); CG iterations {ls['cg_iters']}; "
           f"stage seconds {ls['stage_s']}; launches {lady_launches}",
+          flush=True)
+
+    # phase 3b: trafalgar-126 twin, f32, 5 LM iterations: below the K3
+    # gate but above the cluster kernel's capacity, so the grid kernel
+    mid = write_twin("trafalgar126")
+    with Recorder() as rec_m:
+        kernels.reset_launches()
+        log = run_cli(mid, 5, "trafalgar126")
+        mid_launches = dict(kernels.LAUNCHES)
+    for k in ("outer81_fold", "w_build", "pcg_dense_grid"):
+        check(mid_launches[k] > 0, f"trafalgar126: kernel {k} never "
+                                   f"launched {mid_launches}")
+    check(mid_launches["pcg_dense_cluster"] == 0,
+          f"trafalgar126: the cluster K3 launched {mid_launches}")
+    mid_k3 = check_k3_main_path(rec_m.k3_calls, "phase 3b")
+    rec_m.k3_calls.clear()
+    ms_ = summarize_log(log, "trafalgar126")
+    print(f"[phase 3b] trafalgar-126 twin f32, 5 LM iterations: cost "
+          f"{ms_['initial_cost']:.6f} -> {ms_['final_cost']:.6f}, CG "
+          f"iterations {ms_['cg_iters']}, launches {mid_launches}",
           flush=True)
 
     # phase 4: trafalgar-257 twin, f32, 5 LM iterations; above the K3
@@ -635,7 +840,8 @@ def main() -> int:
     traf_launches = dict(kernels.LAUNCHES)
     check(traf_launches["outer81_fold"] > 0 and traf_launches["w_build"] > 0,
           f"trafalgar: K1/K2 not launched {traf_launches}")
-    check(traf_launches["pcg_dense"] == 0,
+    check(traf_launches["pcg_dense_cluster"] == 0
+          and traf_launches["pcg_dense_grid"] == 0,
           f"trafalgar: K3 launched above its gate {traf_launches}")
     ts = summarize_log(log, "trafalgar")
     per_it = sum(ts["iteration_s"]) / len(ts["iteration_s"])
@@ -651,14 +857,36 @@ def main() -> int:
 
     small_cross_check()
 
-    # K1/K2 timed at the larger (trafalgar) path's inputs, K3 at ladybug's
-    rec_t.largest["pcg_dense"] = rec.largest["pcg_dense"]
-    launches = dict(lady_launches)
-    rows = kernel_rows(rec_t, errs, launches)
+    # K1's device time per LM attempt on each path, from profiled solves
+    # (untimed; not the counted runs)
+    k1_attempt = {"ladybug": k1_per_attempt(lady, 5, "ladybug_profile"),
+                  "trafalgar": k1_per_attempt(traf, 2, "trafalgar_profile")}
+    print(f"[timing] K1 device time per LM attempt: {k1_attempt}",
+          flush=True)
+
+    # K1/K2 timed at the largest (trafalgar-257) path's inputs, the
+    # cluster K3 at ladybug's, the grid K3 at trafalgar-126's
+    paths = {"ladybug": lady_launches, "trafalgar126": mid_launches,
+             "trafalgar": traf_launches}
+    rows = [k1_row(rec_t, errs)]
+    rows[0]["ms_per_attempt_by_path"] = {
+        k: v["ms"] for k, v in k1_attempt.items()}
+    rows[0]["launches_per_attempt_by_path"] = {
+        k: v["launches"] for k, v in k1_attempt.items()}
+    rows.append(k2_row(rec_t, errs))
+    rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
+                       lady_k3, compare_grid=True))
+    rows.append(k3_row("pcg_dense_grid", rec_m.largest["pcg_dense"], errs,
+                       mid_k3, compare_grid=False))
     for r in rows:
-        r["launches_by_path"] = {"ladybug": lady_launches[r["name"]],
-                                 "trafalgar": traf_launches[r["name"]]}
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
         r["card"] = smi
+    print(f"[timing] on {torch.cuda.get_device_name(0)}: "
+          + "; ".join(f"{r['name']} {r['shape']}: {r['ms']:.5f} ms "
+                      f"(bound {r['bound_ms']:.5f}, plain "
+                      f"{r['plain_ms']:.5f}), trace {r['ms_trace']}"
+                      for r in rows), flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

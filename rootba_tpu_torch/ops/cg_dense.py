@@ -5,12 +5,21 @@ drop-in `pcg()` for the explicit dense reduced camera system: the
 feature-major ("z-space") padded matrix Hz [M, M], M = 9 * Nc (see
 solver.linearization.assemble_rcs_dense), the block-Cholesky
 preconditioner as 81 planar rows [81, Nc] padded with identity
-(`chol_planes`), vectors as [9, Nc] planes. Its kernel is
-csrc/cg_dense.cu; its plain twin `pcg_dense_plain` is the Pallas
-kernel's loop (`_cg_kernel`) in PyTorch, with plain float32 dots.
+(`chol_planes`), vectors as [9, Nc] planes. Its plain twin
+`pcg_dense_plain` is the Pallas kernel's loop (`_cg_kernel`) in
+PyTorch, with plain float32 dots.
+
+Two kernels in csrc/cg_dense.cu compute it on the card; `k3_plan`
+chooses one by size before the launch. The cluster kernel holds the
+real 9N x 9N part of Hz in the shared memory of one thread-block
+cluster (8 CTAs, else 16) when a CTA's slab fits in 227 KB; the grid
+kernel (a cooperative launch) takes the larger systems, up to MAX_NC
+lanes. A refused launch of either raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,9 +33,60 @@ from rootba_tpu_torch.solver.cg import (
 )
 
 D = 9
-# the kernel keeps six [M] vectors in each block's shared memory:
-# 6 * 9 * 1024 * 4 B = 221 KB of the 227 KB a block may use
+# shared memory a block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+# the grid kernel keeps six [M] vectors in each block's shared memory:
+# 6 * 9 * 1024 * 4 B = 221 KB
 MAX_NC = 1024
+# cluster sizes the cluster kernel tries, smallest first (8 is the
+# portable limit; 16 is allowed on the H100 as a non-portable size)
+CLUSTER_SIZES = (8, 16)
+# rows of Hz one CTA of the cluster kernel holds at most (8 warps of 10)
+MAX_ROWS_PER_CTA = 80
+# a CTA's GEMV runs one warp per row: past two rows per warp (32 rows) a
+# cluster of 16 halves the rows and wins over its slower barrier
+CLUSTER8_MAX_ROWS = 32
+
+
+class K3Plan(NamedTuple):
+    kernel: str        # "cluster" or "grid"
+    cluster: int       # CTAs in the cluster (0: the grid kernel)
+    rows_per_cta: int  # real rows of Hz resident in each CTA (0: grid)
+    smem_bytes: int    # dynamic shared memory per block
+
+
+def cluster_smem_bytes(N: int, rows_per_cta: int) -> int:
+    """Shared memory of one CTA of the cluster kernel
+    (csrc/cg_dense.cu, cluster_smem_bytes): 32 bytes of mbarriers, then
+    floats -- its slab of rows_per_cta real rows and the vectors p, x,
+    q, q', Hx, each of row length ld = 9 * Np (Np = N rounded up to 4),
+    Lp's lanes (81 Np), the pq partials (2 x 16 CTAs x 8 warps) and the
+    reduction scratch (2 x 3 x 8)."""
+    Np = (N + 3) // 4 * 4
+    ld = 9 * Np
+    return 32 + 4 * (rows_per_cta * ld + 5 * ld + 81 * Np + 2 * 16 * 8
+                     + 6 * 8)
+
+
+def k3_plan(N: int, Nc: int) -> K3Plan:
+    """Which K3 kernel solves an N-camera system on Nc lanes: the
+    cluster kernel with 8 CTAs while each holds at most 32 rows, else
+    with 16 while a CTA's slab fits in shared memory; else the grid
+    kernel up to MAX_NC lanes; raises above."""
+    if not 0 <= N <= Nc:
+        raise ValueError(f"k3_plan: needs 0 <= N <= Nc, got N={N}, Nc={Nc}")
+    if N > 0:
+        for C in CLUSTER_SIZES:
+            rows = -(-9 * N // C)
+            if C == 8 and rows > CLUSTER8_MAX_ROWS:
+                continue
+            smem = cluster_smem_bytes(N, rows)
+            if smem <= SMEM_LIMIT and rows <= MAX_ROWS_PER_CTA:
+                return K3Plan("cluster", C, rows, smem)
+    if Nc > MAX_NC:
+        raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
+                         f"grid kernel's shared-memory limit)")
+    return K3Plan("grid", 0, 0, 4 * (6 * 9 * Nc + 33))
 
 
 def chol_planes(chol: torch.Tensor, Nc: int) -> torch.Tensor:
@@ -124,13 +184,29 @@ def pcg_dense_plain(Hz, b2, Lp, *, min_iters: int, max_iters: int,
     return x, stats
 
 
-def _launch(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
-            reset_period):
+def _launch_cluster(Hz, b2, Lp, N, cluster, *, min_iters, max_iters,
+                    q_tol, r_tol, reset_period):
+    """The cluster kernel on N real cameras of the Nc-lane system."""
+    Nc = Hz.shape[0] // D
+    lib = kernels.load("cg_dense")
+    x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
+    stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
+    kernels.check(lib.rb_pcg_dense_cluster_f32(
+        Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
+        stats.data_ptr(), N, Nc, cluster, max_iters, min_iters, q_tol,
+        r_tol, reset_period, kernels.stream_ptr(Hz)), "pcg_dense_cluster")
+    kernels.LAUNCHES["pcg_dense_cluster"] += 1
+    return x2, stats
+
+
+def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
+                 reset_period):
+    """The grid kernel on every lane of the system."""
     M = Hz.shape[0]
     Nc = M // D
     if Nc > MAX_NC:
         raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
-                         f"kernel's shared-memory limit)")
+                         f"grid kernel's shared-memory limit)")
     lib = kernels.load("cg_dense")
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
@@ -138,9 +214,18 @@ def _launch(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
     kernels.check(lib.rb_pcg_dense_f32(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
         stats.data_ptr(), work.data_ptr(), M, Nc, max_iters, min_iters,
-        q_tol, r_tol, reset_period, kernels.stream_ptr(Hz)), "pcg_dense")
-    kernels.LAUNCHES["pcg_dense"] += 1
+        q_tol, r_tol, reset_period, kernels.stream_ptr(Hz)),
+        "pcg_dense_grid")
+    kernels.LAUNCHES["pcg_dense_grid"] += 1
     return x2, stats
+
+
+def _launch(Hz, b2, Lp, N, **kw):
+    """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes."""
+    plan = k3_plan(N, Hz.shape[0] // D)
+    if plan.kernel == "cluster":
+        return _launch_cluster(Hz, b2, Lp, N, plan.cluster, **kw)
+    return _launch_grid(Hz, b2, Lp, **kw)
 
 
 def pcg_dense(Hz: torch.Tensor, chol: torch.Tensor, b: torch.Tensor, *,
@@ -171,7 +256,7 @@ def pcg_dense(Hz: torch.Tensor, chol: torch.Tensor, b: torch.Tensor, *,
     if Hz.device.type == "cpu":
         x2, stats = pcg_dense_plain(Hz32, b2, Lp, **kw)
     elif Hz.device.type == "cuda":
-        x2, stats = _launch(Hz32, b2, Lp, **kw)
+        x2, stats = _launch(Hz32, b2, Lp, N, **kw)
     else:
         raise ValueError(f"pcg_dense: unsupported device {Hz.device}")
     return CGResult(x=x2[:, :N].T.to(b.dtype),

@@ -39,7 +39,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # its kernel, and nowhere else (its plain CPU path does not count), so
 # a run can show that its path went through the kernels
 LAUNCHES: Dict[str, int] = {"outer81_fold": 0, "w_build": 0,
-                            "pcg_dense": 0}
+                            "pcg_dense_cluster": 0, "pcg_dense_grid": 0}
 
 
 def reset_launches() -> None:
@@ -64,6 +64,8 @@ _SIGNATURES = {
     "cg_dense": {
         "rb_pcg_dense_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _F, _I, _P),
+        "rb_pcg_dense_cluster_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _F, _F, _I, _P),
     },
 }
 

@@ -5,7 +5,8 @@ each CUDA kernel against its twin.
 
 K1 fold_plain      vs outer81_fold_pallas / _outer81_fold
 K2 w_build_plain   vs w_build_table (n <= 16) / the elementwise chain
-K3 pcg_dense_plain vs pcg_dense_vmem / solver.cg.pcg
+K3 pcg_dense_plain vs pcg_dense_vmem / solver.cg.pcg, on padded and
+   unpadded systems; k3_plan, the size switch between K3's two kernels
 
 The card-only test runs on a machine without JAX too (JAX is imported
 inside the tests that compare with it):
@@ -186,6 +187,97 @@ def test_pcg_dense_zero_rhs_and_padding():
     assert not res.x.any()
 
 
+@pytest.mark.parametrize("N,Nc,kernel,cluster,rows", [
+    (1, 128, "cluster", 8, 2),
+    (12, 128, "cluster", 8, 14),
+    (28, 128, "cluster", 8, 32),     # the last system 8 CTAs take
+    (29, 128, "cluster", 16, 17),
+    (49, 128, "cluster", 16, 28),    # ladybug-49: 441 real rows of 1152
+    (49, 49, "cluster", 16, 28),     # unpadded
+    (92, 128, "cluster", 16, 52),    # the largest slab 16 CTAs hold
+    (93, 128, "grid", 0, 0),
+    (126, 128, "grid", 0, 0),        # trafalgar-126
+    (0, 128, "grid", 0, 0),
+    (300, 1024, "grid", 0, 0),       # pallas_cg="on" up to MAX_NC
+])
+def test_k3_plan(N, Nc, kernel, cluster, rows):
+    """K3's size switch: the cluster kernel with 8 CTAs while each holds
+    at most 32 of the 9N real rows, else with 16 while a CTA's slab,
+    vectors and Lp fit in 227 KB of shared memory; else the grid
+    kernel. One camera more moves N = 28 and N = 92 to the next kernel."""
+    plan = cg_dense.k3_plan(N, Nc)
+    assert (plan.kernel, plan.cluster, plan.rows_per_cta) == (kernel,
+                                                               cluster, rows)
+    assert plan.smem_bytes <= cg_dense.SMEM_LIMIT
+    if kernel == "cluster":
+        assert rows == -(-9 * N // cluster) <= cg_dense.MAX_ROWS_PER_CTA
+        assert plan.smem_bytes == cg_dense.cluster_smem_bytes(N, rows)
+        assert ((cluster == 8)
+                == (-(-9 * N // 8) <= cg_dense.CLUSTER8_MAX_ROWS))
+    else:
+        assert N == 0 or cg_dense.cluster_smem_bytes(
+            N, -(-9 * N // 16)) > cg_dense.SMEM_LIMIT
+    if N + 1 <= Nc:
+        nxt = cg_dense.k3_plan(N + 1, Nc)
+        assert (((nxt.kernel, nxt.cluster) != (kernel, cluster))
+                == (N in (0, 28, 92)))
+
+
+def test_k3_plan_rejects():
+    with pytest.raises(ValueError, match="camera lanes"):
+        cg_dense.k3_plan(200, 1152)
+    with pytest.raises(ValueError, match="N <= Nc"):
+        cg_dense.k3_plan(50, 49)
+
+
+def test_k3_launch_follows_plan(monkeypatch):
+    """_launch hands each system to the kernel k3_plan names, with the
+    plan's cluster size; neither launcher stands in for the other."""
+    seen = []
+    monkeypatch.setattr(cg_dense, "_launch_cluster",
+                        lambda Hz, b2, Lp, N, C, **kw: seen.append(
+                            ("cluster", N, C)))
+    monkeypatch.setattr(cg_dense, "_launch_grid",
+                        lambda Hz, b2, Lp, **kw: seen.append(("grid",)))
+    for N in (20, 49, 100):
+        cg_dense._launch(torch.zeros(1152, 1152), None, None, N,
+                         max_iters=1)
+    assert seen == [("cluster", 20, 8), ("cluster", 49, 16), ("grid",)]
+
+
+@pytest.mark.parametrize("q_tol,max_it", [(1e-1, 100), (float("-inf"), 25)])
+def test_pcg_dense_plain_padding_free(q_tol, max_it):
+    """The premise of the cluster kernel, which skips the padded lanes:
+    the twin on Hz padded to 128 lanes and on the unpadded N-lane system
+    gives the same iteration count, termination and x (float32 sums over
+    the zero lanes in another blocking: 1e-6), and the unpadded twin
+    follows the Pallas kernel (interpret mode) on the unpadded system at
+    rtol 2e-4 / atol 2e-5."""
+    import jax.numpy as jnp
+
+    from rootba_tpu.ops.pallas_cg import pcg_dense_vmem
+
+    N = 11
+    kw = dict(max_num_iterations=max_it, q_tolerance=q_tol)
+    A, Hz, blocks, b = _cg_system(N, 128, 7)
+    _, Hz_n, _, _ = _cg_system(N, N, 7)
+    chol = np.linalg.cholesky(blocks.astype(np.float64)).astype(np.float32)
+    padded = cg_dense.pcg_dense(_t(Hz), _t(chol), _t(b), **kw)
+    tight = cg_dense.pcg_dense(_t(Hz_n), _t(chol), _t(b), **kw)
+    for got in (padded, tight):
+        assert int(got.num_iterations) > 1
+    assert int(padded.num_iterations) == int(tight.num_iterations)
+    assert int(padded.termination_type) == int(tight.termination_type)
+    np.testing.assert_allclose(padded.x.numpy(), tight.x.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    pal = pcg_dense_vmem(jnp.asarray(Hz_n), jnp.asarray(chol),
+                         jnp.asarray(b), interpret=True, **kw)
+    assert int(tight.num_iterations) == int(pal.num_iterations)
+    assert int(tight.termination_type) == int(pal.termination_type)
+    np.testing.assert_allclose(tight.x.numpy(), np.asarray(pal.x),
+                               rtol=2e-4, atol=2e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     a = torch.zeros(10, 27)
     with pytest.raises(ValueError, match="does not divide"):
@@ -208,33 +300,18 @@ def test_plain_paths_do_not_count_launches():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """Each CUDA kernel against its plain twin on the card (the
-    tolerances of chip_smoke.py)."""
+    """Each CUDA kernel against its plain twin on the card: phase 2 of
+    chip_smoke.py, at its tolerances -- K1 at every run width up to 64,
+    K = 2 and 3, f32 and f64, on run counts ragged against its tile and on
+    a stream long enough to cycle its copy pipeline; K2; both K3 kernels
+    on both sides of each size switch, through the residual reset, and
+    through the wrapper pcg_dense."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    import chip_smoke
+
     dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(0)
-    for dtype in (torch.float32, torch.float64):
-        s1 = torch.randn(8 * 41, 27, generator=g, dtype=dtype).to(dev)
-        s2 = torch.randn(8 * 41, 27, generator=g, dtype=dtype).to(dev)
-        tol = 1e-5 if dtype == torch.float32 else 1e-12
-        torch.testing.assert_close(fold.outer81_fold(s1, s2, 8),
-                                   fold.fold_plain(s1, s2, 8), rtol=tol,
-                                   atol=tol)
-        q = torch.randn(37, 5 * 6, generator=g, dtype=dtype).to(dev)
-        jp = torch.randn(37, 5 * 18, generator=g, dtype=dtype).to(dev)
-        assert torch.equal(fold.w_build(q, jp, 5),
-                           fold.w_build_plain(q, jp, 5))
-    _, Hz, blocks, b = _cg_system(20, 128, 3)
-    chol = torch.linalg.cholesky(torch.as_tensor(blocks).double()).float()
-    Lp = cg_dense.chol_planes(chol.to(dev), 128)
-    b2 = torch.zeros(9, 128, device=dev)
-    b2[:, :20] = torch.as_tensor(b, device=dev).T
-    Hz = torch.as_tensor(Hz, device=dev)
-    for period in (10, 3):  # 3: crosses the exact residual reset
-        kw = dict(min_iters=0, max_iters=100, q_tol=1e-8, r_tol=-1.0,
-                  reset_period=period)
-        xk, sk = cg_dense._launch(Hz, b2, Lp, **kw)
-        xp, sp = cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)
-        assert int(sk[0]) == int(sp[0]) and int(sk[1]) == int(sp[1])
-        torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+    errs = dict.fromkeys(chip_smoke.KERNEL_NAMES, 0.0)
+    chip_smoke.check_k1(dev, errs)
+    chip_smoke.check_k2(dev, errs)
+    chip_smoke.check_k3(dev, errs)
