@@ -8,9 +8,11 @@ parallel), checks each kernel against its plain PyTorch twin on the card,
 drives the port's main path through its CLI entry point (`run_app`) on
 three seeded synthetic twins of BAL problems -- ladybug-49 (whose dense
 RCS fits the cluster CG kernel), trafalgar-126 (the grid CG kernel) and
-trafalgar-257 (above the CG kernels' gate) -- shows from the wrappers'
-launch counts that each path went through its kernels, cross-checks a
-small solve on the card against the CPU, times every kernel beside its
+trafalgar-257 (above the CG kernels' gate) -- cross-checks a small solve
+on the card against the CPU, shows from the wrappers' launch counts in
+one more solve of each path (under a profiler trace, which must hold the
+same launches) that each path went through its kernels and what they
+took per LM attempt, times every kernel beside its
 bound, its plain twin and a one-call PyTorch yardstick (device time
 from a profiler trace, with the names of the kernels in it), and
 prints
@@ -269,18 +271,114 @@ def check_k2(dev, errs: dict) -> None:
               f"(tol 0)", flush=True)
 
 
-# K3 test systems (N, Nc, seed) on both sides of each size switch of
-# cg_dense.k3_plan: the cluster kernel with 8 CTAs (12, 28), with 16
-# (29, 49, 92), the grid kernel (93, 128), and one unpadded system. At
-# q_tol 1e-8 a float32 CG stops where q1 - q0 falls below about one ulp
-# of q1, so whether two correct implementations stop at the same
-# iteration depends on rounding: on most seeds the twin, the grid kernel
-# and the cluster kernel part by one iteration somewhere (PERF.md). Each
-# seed is the first of N, N + 1000, N + 2000, ... on which the three
-# agree in every case.
-K3_SYSTEMS = ((12, 128, 12), (28, 128, 28), (29, 128, 4029),
-              (49, 128, 4049), (92, 128, 6092), (93, 128, 1093),
-              (128, 128, 128), (49, 49, 4049))
+# K3 test systems (N, Nc), each from seed N: on both sides of k3_plan's
+# switch between the cluster kernel (N <= 92) and the grid kernel, and
+# one unpadded system
+K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (128, 128),
+              (49, 49))
+# A zeta test with q_tol below 2^-24 stops a float32 CG where q1 - q0
+# falls to about one ulp of q1, so two correct implementations may stop
+# one iteration apart where q's exact decrease is within float32's
+# rounding (PERF.md, "Stopping ties"). Such a pair passes only where
+# the exact (float64) zeta at the earlier stop m lies within m * 2^-21
+# of q_tol: q's exact decrease within 4-8 ulps of q1.
+ZETA_BAND = 2.0 ** -21
+
+
+def zeta64(Hz, b2, Lp, kw: dict, m: int) -> float:
+    """The exact zeta of the twin's iteration m, m (q1_m - q1_{m-1}) /
+    q1_m, in float64 with q1 = -x . (2b - Hx) (r = b - Hx exactly) for
+    the twin's x after m - 1 and m fixed iterations (as
+    scripts/k3_checks.py prints it)."""
+    from rootba_tpu_torch.ops import cg_dense
+
+    H = Hz.double()
+    b = b2.double().reshape(-1)
+
+    def q1(n: int) -> float:
+        if n == 0:
+            return 0.0
+        x = cg_dense.pcg_dense_plain(Hz, b2, Lp, **{
+            **kw, "max_iters": n, "q_tol": float("-inf")})[0]
+        x = x.double().reshape(-1)
+        return float(-(x @ (2 * b - H @ x)))
+
+    q_prev, q_m = q1(m - 1), q1(m)
+    return m * (q_m - q_prev) / q_m
+
+
+def compare_k3(name: str, launch, Hz, b2, Lp, N: int, kw: dict,
+               errs: dict) -> str:
+    """A K3 launcher against the twin with the CG options kw: equal
+    iteration counts and terminations, x to rtol 2e-4 / atol 2e-5 (the
+    test of the JAX package's kernel against pcg, test_cg.py), zeros in
+    x's padded lanes. Under a zeta test below 2^-24, stops one iteration
+    apart pass as a tie within ZETA_BAND, with x compared at the shorter
+    count. Returns the line to print."""
+    from rootba_tpu_torch.ops import cg_dense
+    from rootba_tpu_torch.solver.cg import CG_SUCCESS
+
+    x_p, st_p = cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)
+    x_k, st_k = launch(Hz, b2, Lp, **kw)
+    it_p, term_p = int(st_p[0]), int(st_p[1])
+    it_k, term_k = int(st_k[0]), int(st_k[1])
+    what = (f"{name} N={N} Nc={Hz.shape[0] // 9} q_tol={kw['q_tol']:g} "
+            f"reset every {kw['reset_period']}")
+    check(not x_k[:, N:].any(), f"{what}: nonzero padded lanes of x")
+    tie = ""
+    m = min(it_k, it_p)
+    if it_k != it_p:
+        z = zeta64(Hz, b2, Lp, kw, m)
+        check(kw["q_tol"] < 2.0 ** -24 and abs(it_k - it_p) == 1
+              and term_k == term_p == CG_SUCCESS
+              and abs(z - kw["q_tol"]) <= m * ZETA_BAND,
+              f"{what}: iterations/termination {it_k}/{term_k} vs "
+              f"{it_p}/{term_p}, exact zeta at {m}: {z:.3e} (tie band "
+              f"{m * ZETA_BAND:.3e})")
+        fixed = {**kw, "max_iters": m, "q_tol": float("-inf")}
+        if it_k > m:
+            x_k = launch(Hz, b2, Lp, **fixed)[0]
+        else:
+            x_p = cg_dense.pcg_dense_plain(Hz, b2, Lp, **fixed)[0]
+        tie = (f", a stopping tie (exact zeta at {m}: {z:.3e}, band "
+               f"{m * ZETA_BAND:.3e}; x compared at {m})")
+    check(term_k == term_p, f"{what}: termination {term_k} vs {term_p}")
+    err = max_abs(x_k, x_p)
+    errs[name] = max(errs[name], err)
+    check(close(x_k, x_p, 2e-4, 2e-5), f"{what}: max abs err {err}")
+    if kw["reset_period"] == 3 or kw["q_tol"] == float("-inf"):
+        check(m > kw["reset_period"], f"{what}: {m} iterations cross no "
+                                      f"reset")
+    return (f"{what}: iterations {it_k}/{it_p} (kernel/plain), "
+            f"termination {term_k}/{term_p}, max abs err {err:.3e} (tol "
+            f"rtol=2e-4, atol=2e-5){tie}")
+
+
+def check_k3_plan() -> None:
+    """k3_plan (ops/cg_dense.py) against the capacity check of the
+    cluster kernel's launch (rb_pcg_dense_cluster_plan in
+    csrc/cg_dense.cu) at every N up to MAX_NC: the same choice, and for
+    the cluster kernel the same rows per CTA and shared memory."""
+    import ctypes
+
+    from rootba_tpu_torch.ops import cg_dense, kernels
+
+    lib = kernels.load("cg_dense")
+    rows, smem = ctypes.c_int(), ctypes.c_longlong()
+    largest = 0
+    for N in range(1, cg_dense.MAX_NC + 1):
+        fits = lib.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
+                                             ctypes.addressof(smem))
+        plan = cg_dense.k3_plan(N, N)
+        check((plan.kernel == "cluster") == bool(fits) and (
+            not fits or (plan.rows_per_cta, plan.smem_bytes)
+            == (rows.value, smem.value)),
+            f"k3_plan({N}) = {plan}; the kernel's plan: fits {fits}, rows "
+            f"{rows.value}, shared memory {smem.value}")
+        largest = N if fits else largest
+    print(f"[phase 2] k3_plan equals the cluster kernel's capacity check "
+          f"at N = 1..{cg_dense.MAX_NC}: cluster kernel up to N = "
+          f"{largest}", flush=True)
 
 
 def check_k3(dev, errs: dict) -> None:
@@ -295,8 +393,9 @@ def check_k3(dev, errs: dict) -> None:
     from rootba_tpu_torch.ops import cg_dense, kernels
     from rootba_tpu_torch.ops.block9 import chol9
 
-    for N, Nc, seed in K3_SYSTEMS:
-        Hz, blocks, b = spd_system(N, Nc, seed=seed)
+    check_k3_plan()
+    for N, Nc in K3_SYSTEMS:
+        Hz, blocks, b = spd_system(N, Nc, seed=N)
         Hz = torch.as_tensor(Hz, device=dev)
         chol = chol9(torch.as_tensor(blocks, device=dev))
         bt = torch.as_tensor(b, device=dev)
@@ -307,41 +406,15 @@ def check_k3(dev, errs: dict) -> None:
         launchers = {"pcg_dense_grid": cg_dense._launch_grid}
         if plan.kernel == "cluster":
             launchers["pcg_dense_cluster"] = (
-                lambda *a, **k: cg_dense._launch_cluster(
-                    *a, N, plan.cluster, **k))
+                lambda *a, **k: cg_dense._launch_cluster(*a, N, **k))
         for q_tol, max_it, period in ((1e-1, 100, 10), (1e-8, 200, 10),
                                       (1e-8, 200, 3),
                                       (float("-inf"), 25, 10)):
             kw = dict(min_iters=0, max_iters=max_it, q_tol=q_tol,
                       r_tol=-1.0, reset_period=period)
-            x_p, st_p = cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)
-            it_p, term_p = int(st_p[0]), int(st_p[1])
             for name, launch in launchers.items():
-                x_k, st_k = launch(Hz, b2, Lp, **kw)
-                it_k, term_k = int(st_k[0]), int(st_k[1])
-                err = max_abs(x_k, x_p)
-                errs[name] = max(errs[name], err)
-                print(f"[phase 2] {name} N={N} Nc={Nc} ({plan.kernel} "
-                      f"plan, cluster {plan.cluster}) q_tol={q_tol:g} "
-                      f"reset every {period}: iterations {it_k}/{it_p} "
-                      f"(kernel/plain), termination {term_k}/{term_p}, "
-                      f"max abs err {err:.3e} (tol rtol=2e-4, atol=2e-5)",
-                      flush=True)
-                # float32 dots and GEMV summed in another order: the
-                # test of the JAX package's kernel against pcg
-                # (test_cg.py)
-                check(it_k == it_p and term_k == term_p,
-                      f"{name} N={N} q_tol={q_tol} reset {period}: "
-                      f"iterations/termination {it_k}/{term_k} vs "
-                      f"{it_p}/{term_p}")
-                check(close(x_k, x_p, 2e-4, 2e-5),
-                      f"{name} N={N} q_tol={q_tol} reset {period}: max "
-                      f"abs err {err}")
-                check(not x_k[:, N:].any(),
-                      f"{name} N={N}: nonzero padded lanes of x")
-                if period == 3 or max_it == 25:
-                    check(it_k > period,
-                          f"{name} N={N}: {it_k} iterations cross no reset")
+                line = compare_k3(name, launch, Hz, b2, Lp, N, kw, errs)
+                print(f"[phase 2] {line} ({plan.kernel} plan)", flush=True)
         # the wrapper the main path calls (chol planes, b's padding, the
         # float32 casts, x's layout, the plan): on the card against the
         # same call on CPU copies, which takes the plain twin
@@ -610,27 +683,41 @@ def k3_bound(n_rows: int, lanes: int, iters: int, resets: int) -> dict:
     return bound(nbytes, flops)
 
 
-def k1_per_attempt(bal_path: Path, iters: int, tag: str) -> dict:
-    """K1's summed device time per LM attempt over one solve: the
-    durations of its kernels in a profiler trace of the solve, over the
-    solve's attempts."""
+def counted_run(bal_path: Path, iters: int, tag: str) -> tuple:
+    """One solve of the main path through the CLI, with the launch
+    counts set to 0 just before it and read just after, under a profiler
+    trace of the card: (its ba_log, {kernel: launches}, {kernel: device
+    ms summed over the solve}). Each kernel's launches in the trace must
+    equal its wrapper's count. The trace's warm-up step (one small
+    kernel) keeps it from losing the solve's first launch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        log = run_cli(bal_path, iters, tag)
+    from rootba_tpu_torch.ops import kernels
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    us = 0.0
-    n = 0
+        prof.step()
+        kernels.reset_launches()
+        log = run_cli(bal_path, iters, tag)
+        launches = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        prof.step()
+    by_name = {v: k for k, v in KERNEL_NAMES.items()}
+    us = dict.fromkeys(KERNEL_NAMES, 0.0)
+    seen = dict.fromkeys(KERNEL_NAMES, 0)
     for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and KERNEL_NAMES["outer81_fold"] in e.name):
-            us += e.time_range.elapsed_us()
-            n += 1
-    attempts = len(log["iteration_time"]) - 1
-    check(n > 0 and attempts > 0, f"{tag}: no K1 kernel in the trace")
-    return dict(ms=us / 1e3 / attempts, launches=n / attempts,
-                attempts=attempts)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = by_name.get(short_name(e.name).split("<")[0])
+            if k is not None:
+                us[k] += e.time_range.elapsed_us()
+                seen[k] += 1
+    check(seen == launches, f"{tag}: launches in the trace {seen}, by "
+                            f"the wrappers' counts {launches}")
+    return log, launches, {k: v / 1e3 for k, v in us.items()}
 
 
 def k1_row(rec: "Recorder", errs: dict) -> dict:
@@ -778,55 +865,39 @@ def main() -> int:
 
     errs = check_kernels(dev)
 
-    # phase 3: ladybug-49 twin, f32, 20 LM iterations: a warm-up solve
-    # (which also keeps the kernels' main-path inputs for the timing
-    # phase), then the timed solve with the launch counts reset just
-    # before it
+    # phases 3 and 4 drive each path untraced: a recording solve (which
+    # keeps the kernels' main-path inputs for the timing phase) and, for
+    # ladybug and trafalgar-257, a solve timed on the host clock. Every
+    # profiler trace comes later: a solve that follows a traced one in
+    # the same process runs slower on the host (PERF.md).
+
+    # phase 3: ladybug-49 twin, f32, 20 LM iterations
     lady = write_twin("ladybug")
     with Recorder() as rec:
         run_cli(lady, 20, "ladybug_warmup")
-    kernels.reset_launches()
-    t = time.monotonic()
-    log = run_cli(lady, 20, "ladybug")
-    lady_s = time.monotonic() - t
-    lady_launches = dict(kernels.LAUNCHES)
-    for k in ("outer81_fold", "w_build", "pcg_dense_cluster"):
-        check(lady_launches[k] > 0, f"ladybug: kernel {k} never launched")
-    check(lady_launches["pcg_dense_grid"] == 0,
-          f"ladybug: the grid K3 launched {lady_launches}")
     lady_k3 = check_k3_main_path(rec.k3_calls, "phase 3")
     rec.k3_calls.clear()  # ~5 MB of Hz per call, not needed past here
-    ls = summarize_log(log, "ladybug")
-    rel = abs(ls["final_cost"] / LADYBUG_CARD_FINAL_COST - 1)
-    check(rel < 1e-4, f"ladybug: final cost {ls['final_cost']} is rel "
-                      f"{rel} from {LADYBUG_CARD_FINAL_COST}")
+    t = time.monotonic()
+    ls = summarize_log(run_cli(lady, 20, "ladybug_timed"), "ladybug")
+    lady_s = time.monotonic() - t
     print(f"[phase 3] ladybug-49 twin f32, 20 LM iterations: "
           f"{lady_s:.3f} s per CLI solve (minimizer "
           f"{ls['minimizer_s']:.3f} s), cost {ls['initial_cost']:.6f} -> "
           f"{ls['final_cost']:.6f} (TPU run of the JAX package: "
           f"{LADYBUG_TPU_FINAL_COST}); CG iterations {ls['cg_iters']}; "
-          f"stage seconds {ls['stage_s']}; launches {lady_launches}",
-          flush=True)
+          f"stage seconds {ls['stage_s']}", flush=True)
 
     # phase 3b: trafalgar-126 twin, f32, 5 LM iterations: below the K3
     # gate but above the cluster kernel's capacity, so the grid kernel
     mid = write_twin("trafalgar126")
     with Recorder() as rec_m:
-        kernels.reset_launches()
-        log = run_cli(mid, 5, "trafalgar126")
-        mid_launches = dict(kernels.LAUNCHES)
-    for k in ("outer81_fold", "w_build", "pcg_dense_grid"):
-        check(mid_launches[k] > 0, f"trafalgar126: kernel {k} never "
-                                   f"launched {mid_launches}")
-    check(mid_launches["pcg_dense_cluster"] == 0,
-          f"trafalgar126: the cluster K3 launched {mid_launches}")
+        ms_ = summarize_log(run_cli(mid, 5, "trafalgar126_record"),
+                            "trafalgar126")
     mid_k3 = check_k3_main_path(rec_m.k3_calls, "phase 3b")
     rec_m.k3_calls.clear()
-    ms_ = summarize_log(log, "trafalgar126")
     print(f"[phase 3b] trafalgar-126 twin f32, 5 LM iterations: cost "
           f"{ms_['initial_cost']:.6f} -> {ms_['final_cost']:.6f}, CG "
-          f"iterations {ms_['cg_iters']}, launches {mid_launches}",
-          flush=True)
+          f"iterations {ms_['cg_iters']}", flush=True)
 
     # phase 4: trafalgar-257 twin, f32, 5 LM iterations; above the K3
     # gate, so CG runs pcg on dense GEMVs
@@ -835,15 +906,7 @@ def main() -> int:
         run_cli(traf, 1, "trafalgar_record")
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the kept inputs, not the solve's
-    kernels.reset_launches()
-    log = run_cli(traf, 5, "trafalgar")
-    traf_launches = dict(kernels.LAUNCHES)
-    check(traf_launches["outer81_fold"] > 0 and traf_launches["w_build"] > 0,
-          f"trafalgar: K1/K2 not launched {traf_launches}")
-    check(traf_launches["pcg_dense_cluster"] == 0
-          and traf_launches["pcg_dense_grid"] == 0,
-          f"trafalgar: K3 launched above its gate {traf_launches}")
-    ts = summarize_log(log, "trafalgar")
+    ts = summarize_log(run_cli(traf, 5, "trafalgar_timed"), "trafalgar")
     per_it = sum(ts["iteration_s"]) / len(ts["iteration_s"])
     print(f"[phase 4] trafalgar-257 twin f32, 5 LM iterations: "
           f"{per_it:.4f} s per LM iteration (iteration times "
@@ -853,34 +916,54 @@ def main() -> int:
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"({held / 2**20:.1f} MiB of it held by this script before "
-          f"the solve), launches {traf_launches}", flush=True)
+          f"the solve)", flush=True)
 
     small_cross_check()
 
-    # K1's device time per LM attempt on each path, from profiled solves
-    # (untimed; not the counted runs)
-    k1_attempt = {"ladybug": k1_per_attempt(lady, 5, "ladybug_profile"),
-                  "trafalgar": k1_per_attempt(traf, 2, "trafalgar_profile")}
-    print(f"[timing] K1 device time per LM attempt: {k1_attempt}",
-          flush=True)
+    # phase 6: the counted solve of each path, under a trace: the launch
+    # counts set to 0 just before it and read just after
+    paths = {}
+    logs = {}
+    for path, bal, iters, k3 in (("ladybug", lady, 20, "pcg_dense_cluster"),
+                                 ("trafalgar126", mid, 5, "pcg_dense_grid"),
+                                 ("trafalgar", traf, 5, None)):
+        log, n, ms = counted_run(bal, iters, path)
+        logs[path] = log
+        paths[path] = (n, ms)
+        summarize_log(log, path)
+        for k in n:
+            want = k in ("outer81_fold", "w_build") or k == k3
+            check((n[k] > 0) == want, f"{path}: kernel {k} launched "
+                                      f"{n[k]} times {n}")
+        print(f"[phase 6] {path}: {iters} LM iterations, launches {n}, "
+              f"device ms summed over the solve "
+              f"{ {k: round(v, 5) for k, v in ms.items()} }", flush=True)
+    rel = abs(logs["ladybug"]["cost"][-1] / LADYBUG_CARD_FINAL_COST - 1)
+    check(rel < 1e-4, f"ladybug: final cost {logs['ladybug']['cost'][-1]} "
+                      f"is rel {rel} from {LADYBUG_CARD_FINAL_COST}")
+    rel = abs(ls["final_cost"] / LADYBUG_CARD_FINAL_COST - 1)
+    check(rel < 1e-4, f"ladybug: final cost {ls['final_cost']} is rel "
+                      f"{rel} from {LADYBUG_CARD_FINAL_COST}")
 
     # K1/K2 timed at the largest (trafalgar-257) path's inputs, the
     # cluster K3 at ladybug's, the grid K3 at trafalgar-126's
-    paths = {"ladybug": lady_launches, "trafalgar126": mid_launches,
-             "trafalgar": traf_launches}
-    rows = [k1_row(rec_t, errs)]
-    rows[0]["ms_per_attempt_by_path"] = {
-        k: v["ms"] for k, v in k1_attempt.items()}
-    rows[0]["launches_per_attempt_by_path"] = {
-        k: v["launches"] for k, v in k1_attempt.items()}
-    rows.append(k2_row(rec_t, errs))
+    attempts = {p: len(lg["iteration_time"]) - 1 for p, lg in logs.items()}
+    rows = [k1_row(rec_t, errs), k2_row(rec_t, errs)]
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_grid", rec_m.largest["pcg_dense"], errs,
                        mid_k3, compare_grid=False))
+    # launches and summed device time per LM attempt, from each path's
+    # counted solve
     for r in rows:
-        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
+        k = r["name"]
+        r["launches_by_path"] = {p: n[k] for p, (n, _) in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
+        r["attempts_by_path"] = attempts
+        r["launches_per_attempt_by_path"] = {
+            p: n[k] / attempts[p] for p, (n, _) in paths.items()}
+        r["ms_per_attempt_by_path"] = {
+            p: ms[k] / attempts[p] for p, (_, ms) in paths.items()}
         r["card"] = smi
     print(f"[timing] on {torch.cuda.get_device_name(0)}: "
           + "; ".join(f"{r['name']} {r['shape']}: {r['ms']:.5f} ms "

@@ -16,7 +16,7 @@
 // A kernel with one thread per output (each of its W*K FMAs fed by two
 // shared-memory loads, a division by 81 and by 9 per output), scalar
 // 4-byte staging loads and one tile per block is bound by shared-memory
-// load issue, at about 40 % of the byte bound. This one:
+// load issue, at about 40 % of the byte bound on an H100. This one:
 // - Bulk-copy pipeline. A tile of (64 / W) runs -- 64 slots, contiguous
 //   in both strips -- comes into shared memory by two 1-D TMA bulk copies
 //   (cp.async.bulk, completion on an mbarrier), three stages deep, in
@@ -36,9 +36,8 @@
 //   in shared memory and leave by one TMA bulk store per tile, so no
 //   thread waits on them. Index arithmetic is 32-bit where M*K*9 and
 //   R*81 fit.
-// What is left between it and the byte bound: the products and the
-// stores of a tile that the pipeline does not hide, and the ramp at the
-// start and end of the grid (PERF.md).
+// What still holds it short of the byte bound on an H100 is not measured
+// yet (PERF.md, open questions).
 //
 // Plain C interface for ctypes; every entry returns the CUDA error code.
 

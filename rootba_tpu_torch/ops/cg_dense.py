@@ -12,9 +12,9 @@ PyTorch, with plain float32 dots.
 Two kernels in csrc/cg_dense.cu compute it on the card; `k3_plan`
 chooses one by size before the launch. The cluster kernel holds the
 real 9N x 9N part of Hz in the shared memory of one thread-block
-cluster (8 CTAs, else 16) when a CTA's slab fits in 227 KB; the grid
-kernel (a cooperative launch) takes the larger systems, up to MAX_NC
-lanes. A refused launch of either raises.
+cluster of 16 CTAs when a CTA's slab fits in 227 KB; the grid kernel (a
+cooperative launch) takes the larger systems, up to MAX_NC lanes. A
+refused launch of either raises.
 """
 
 from __future__ import annotations
@@ -38,14 +38,16 @@ SMEM_LIMIT = 232448
 # the grid kernel keeps six [M] vectors in each block's shared memory:
 # 6 * 9 * 1024 * 4 B = 221 KB
 MAX_NC = 1024
-# cluster sizes the cluster kernel tries, smallest first (8 is the
-# portable limit; 16 is allowed on the H100 as a non-portable size)
-CLUSTER_SIZES = (8, 16)
-# rows of Hz one CTA of the cluster kernel holds at most (8 warps of 10)
+# The cluster kernel's capacity, as csrc/cg_dense.cu's cluster_plan has
+# it (the card test holds k3_plan equal to rb_pcg_dense_cluster_plan):
+# CTAs in its cluster (kCluster, a non-portable size on the H100)
+CLUSTER = 16
+# camera lanes, one thread each (kLaneWarps x 32)
+MAX_LANES = 96
+# 16-byte chunks of a slab row in the prologue's copy (32 x kMaxRowChunks)
+MAX_ROW_CHUNKS = 224
+# rows of Hz one CTA holds at most (kRowsPerWarp x kCWarps)
 MAX_ROWS_PER_CTA = 80
-# a CTA's GEMV runs one warp per row: past two rows per warp (32 rows) a
-# cluster of 16 halves the rows and wins over its slower barrier
-CLUSTER8_MAX_ROWS = 32
 
 
 class K3Plan(NamedTuple):
@@ -64,25 +66,22 @@ def cluster_smem_bytes(N: int, rows_per_cta: int) -> int:
     reduction scratch (2 x 3 x 8)."""
     Np = (N + 3) // 4 * 4
     ld = 9 * Np
-    return 32 + 4 * (rows_per_cta * ld + 5 * ld + 81 * Np + 2 * 16 * 8
-                     + 6 * 8)
+    return 32 + 4 * (rows_per_cta * ld + 5 * ld + 81 * Np
+                     + 2 * CLUSTER * 8 + 6 * 8)
 
 
 def k3_plan(N: int, Nc: int) -> K3Plan:
     """Which K3 kernel solves an N-camera system on Nc lanes: the
-    cluster kernel with 8 CTAs while each holds at most 32 rows, else
-    with 16 while a CTA's slab fits in shared memory; else the grid
-    kernel up to MAX_NC lanes; raises above."""
+    cluster kernel while its lanes, rows and shared memory hold the
+    system (cluster_plan in csrc/cg_dense.cu), else the grid kernel up to
+    MAX_NC lanes; raises above."""
     if not 0 <= N <= Nc:
         raise ValueError(f"k3_plan: needs 0 <= N <= Nc, got N={N}, Nc={Nc}")
-    if N > 0:
-        for C in CLUSTER_SIZES:
-            rows = -(-9 * N // C)
-            if C == 8 and rows > CLUSTER8_MAX_ROWS:
-                continue
-            smem = cluster_smem_bytes(N, rows)
-            if smem <= SMEM_LIMIT and rows <= MAX_ROWS_PER_CTA:
-                return K3Plan("cluster", C, rows, smem)
+    rows = -(-9 * N // CLUSTER)
+    smem = cluster_smem_bytes(N, rows)
+    if (1 <= N <= MAX_LANES and 9 * ((N + 3) // 4) <= MAX_ROW_CHUNKS
+            and rows <= MAX_ROWS_PER_CTA and smem <= SMEM_LIMIT):
+        return K3Plan("cluster", CLUSTER, rows, smem)
     if Nc > MAX_NC:
         raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
                          f"grid kernel's shared-memory limit)")
@@ -184,8 +183,8 @@ def pcg_dense_plain(Hz, b2, Lp, *, min_iters: int, max_iters: int,
     return x, stats
 
 
-def _launch_cluster(Hz, b2, Lp, N, cluster, *, min_iters, max_iters,
-                    q_tol, r_tol, reset_period):
+def _launch_cluster(Hz, b2, Lp, N, *, min_iters, max_iters, q_tol, r_tol,
+                    reset_period):
     """The cluster kernel on N real cameras of the Nc-lane system."""
     Nc = Hz.shape[0] // D
     lib = kernels.load("cg_dense")
@@ -193,8 +192,8 @@ def _launch_cluster(Hz, b2, Lp, N, cluster, *, min_iters, max_iters,
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
     kernels.check(lib.rb_pcg_dense_cluster_f32(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
-        stats.data_ptr(), N, Nc, cluster, max_iters, min_iters, q_tol,
-        r_tol, reset_period, kernels.stream_ptr(Hz)), "pcg_dense_cluster")
+        stats.data_ptr(), N, Nc, max_iters, min_iters, q_tol, r_tol,
+        reset_period, kernels.stream_ptr(Hz)), "pcg_dense_cluster")
     kernels.LAUNCHES["pcg_dense_cluster"] += 1
     return x2, stats
 
@@ -224,7 +223,7 @@ def _launch(Hz, b2, Lp, N, **kw):
     """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes."""
     plan = k3_plan(N, Hz.shape[0] // D)
     if plan.kernel == "cluster":
-        return _launch_cluster(Hz, b2, Lp, N, plan.cluster, **kw)
+        return _launch_cluster(Hz, b2, Lp, N, **kw)
     return _launch_grid(Hz, b2, Lp, **kw)
 
 

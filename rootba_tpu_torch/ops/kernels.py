@@ -65,7 +65,8 @@ _SIGNATURES = {
         "rb_pcg_dense_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _F, _I, _P),
         "rb_pcg_dense_cluster_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _F, _F, _I, _P),
+                                     _F, _F, _I, _P),
+        "rb_pcg_dense_cluster_plan": (_I, _P, _P),
     },
 }
 

@@ -9,9 +9,11 @@
    the fast path's range). The check kernel includes cg_dense.cu itself.
 2. Where float32 CG stops at q_tol 1e-8: for the phase-2 system sizes of
    chip_smoke.py and seeds N, N + 1000, ..., the iteration counts of the
-   plain twin and both K3 kernels (reset every 10 and every 3), and for
-   one system the float64 zeta of each iteration's x (q1 = -x.(b + r),
-   r = b - Hx) from the twin and the cluster kernel.
+   plain twin and both K3 kernels (reset every 10 and every 3); where
+   they differ, the exact (float64) zeta at the earlier stop beside
+   chip_smoke's tie band; and for one system the float64 zeta of each
+   iteration's x (q1 = -x.(b + r), r = b - Hx) from the twin and the
+   cluster kernel.
 """
 
 from __future__ import annotations
@@ -104,7 +106,8 @@ def main() -> int:
         f"{c[1]} of {c[2]} quot_fast results in its range do")
 
     dev = torch.device("cuda")
-    for N, Nc, _ in cs.K3_SYSTEMS:
+    ties = within = 0
+    for N, Nc in cs.K3_SYSTEMS:
         plan = cg_dense.k3_plan(N, Nc)
         for k in range(8):
             seed = N + 1000 * k
@@ -115,6 +118,7 @@ def main() -> int:
             b2 = torch.zeros((9, Nc), device=dev)
             b2[:, :N] = torch.as_tensor(b, device=dev).T
             counts = []
+            notes = []
             for period in (10, 3):
                 kw = dict(min_iters=0, max_iters=200, q_tol=1e-8,
                           r_tol=-1.0, reset_period=period)
@@ -122,13 +126,25 @@ def main() -> int:
                        int(cg_dense._launch_grid(Hz, b2, Lp, **kw)[1][0])]
                 if plan.kernel == "cluster":
                     its.append(int(cg_dense._launch_cluster(
-                        Hz, b2, Lp, N, plan.cluster, **kw)[1][0]))
+                        Hz, b2, Lp, N, **kw)[1][0]))
                 counts.append(its)
+                if len(set(its)) > 1:
+                    m = min(its)
+                    z = cs.zeta64(Hz, b2, Lp, kw, m)
+                    ok = (max(its) - m == 1
+                          and abs(z - kw["q_tol"]) <= m * cs.ZETA_BAND)
+                    ties += 1
+                    within += ok
+                    notes.append(f"reset {period}: exact zeta at {m} "
+                                 f"{z:.3e}, band {m * cs.ZETA_BAND:.3e}"
+                                 f"{'' if ok else ' OUTSIDE'}")
             same = all(len(set(x)) == 1 for x in counts)
             say(f"N={N} Nc={Nc} seed={seed}: stops (twin, grid"
                 f"{', cluster' if plan.kernel == 'cluster' else ''}) at "
                 f"q_tol 1e-8, reset 10: {counts[0]}, reset 3: {counts[1]}"
-                f"{'' if same else '  <- differ'}")
+                f"{'' if same else '  <- differ: ' + '; '.join(notes)}")
+    say(f"stops that differ: {ties}; one iteration apart within the tie "
+        f"band: {within}")
 
     N = 49
     Hz, blocks, b = cs.spd_system(N, 128, seed=N)
@@ -139,13 +155,11 @@ def main() -> int:
     b2[:, :N] = torch.as_tensor(b, device=dev).T
     b64 = b2.double().reshape(-1)
     prev = {"twin": 0.0, "cluster": 0.0}
-    plan = cg_dense.k3_plan(N, 128)
     for k in range(1, 12):
         kw = dict(min_iters=0, max_iters=k, q_tol=float("-inf"), r_tol=-1.0,
                   reset_period=3)
         xs = {"twin": cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)[0],
-              "cluster": cg_dense._launch_cluster(Hz, b2, Lp, N,
-                                                  plan.cluster, **kw)[0]}
+              "cluster": cg_dense._launch_cluster(Hz, b2, Lp, N, **kw)[0]}
         parts = []
         for name, x in xs.items():
             x = x.double().reshape(-1)

@@ -187,40 +187,39 @@ def test_pcg_dense_zero_rhs_and_padding():
     assert not res.x.any()
 
 
-@pytest.mark.parametrize("N,Nc,kernel,cluster,rows", [
-    (1, 128, "cluster", 8, 2),
-    (12, 128, "cluster", 8, 14),
-    (28, 128, "cluster", 8, 32),     # the last system 8 CTAs take
-    (29, 128, "cluster", 16, 17),
-    (49, 128, "cluster", 16, 28),    # ladybug-49: 441 real rows of 1152
-    (49, 49, "cluster", 16, 28),     # unpadded
-    (92, 128, "cluster", 16, 52),    # the largest slab 16 CTAs hold
-    (93, 128, "grid", 0, 0),
-    (126, 128, "grid", 0, 0),        # trafalgar-126
-    (0, 128, "grid", 0, 0),
-    (300, 1024, "grid", 0, 0),       # pallas_cg="on" up to MAX_NC
+@pytest.mark.parametrize("N,Nc,kernel,rows", [
+    (1, 128, "cluster", 1),
+    (12, 128, "cluster", 7),
+    (20, 128, "cluster", 12),
+    (29, 128, "cluster", 17),
+    (49, 128, "cluster", 28),    # ladybug-49: 441 real rows of 1152
+    (49, 49, "cluster", 28),     # unpadded
+    (92, 128, "cluster", 52),    # the largest slab a CTA holds
+    (93, 128, "grid", 0),
+    (126, 128, "grid", 0),       # trafalgar-126
+    (0, 128, "grid", 0),
+    (300, 1024, "grid", 0),      # pallas_cg="on" up to MAX_NC
 ])
-def test_k3_plan(N, Nc, kernel, cluster, rows):
-    """K3's size switch: the cluster kernel with 8 CTAs while each holds
-    at most 32 of the 9N real rows, else with 16 while a CTA's slab,
-    vectors and Lp fit in 227 KB of shared memory; else the grid
-    kernel. One camera more moves N = 28 and N = 92 to the next kernel."""
+def test_k3_plan(N, Nc, kernel, rows):
+    """K3's size switch: the cluster kernel (16 CTAs) while a CTA's slab
+    of ceil(9N / 16) real rows, its vectors and Lp fit in 227 KB of shared
+    memory; else the grid kernel. One camera more moves N = 0 and N = 92
+    to the other kernel. (The card test holds k3_plan equal to the
+    kernel's own capacity check.)"""
     plan = cg_dense.k3_plan(N, Nc)
-    assert (plan.kernel, plan.cluster, plan.rows_per_cta) == (kernel,
-                                                               cluster, rows)
+    assert (plan.kernel, plan.rows_per_cta) == (kernel, rows)
+    assert plan.cluster == (cg_dense.CLUSTER if kernel == "cluster" else 0)
     assert plan.smem_bytes <= cg_dense.SMEM_LIMIT
     if kernel == "cluster":
-        assert rows == -(-9 * N // cluster) <= cg_dense.MAX_ROWS_PER_CTA
+        assert rows == -(-9 * N // 16) <= cg_dense.MAX_ROWS_PER_CTA
+        assert N <= cg_dense.MAX_LANES
         assert plan.smem_bytes == cg_dense.cluster_smem_bytes(N, rows)
-        assert ((cluster == 8)
-                == (-(-9 * N // 8) <= cg_dense.CLUSTER8_MAX_ROWS))
     else:
         assert N == 0 or cg_dense.cluster_smem_bytes(
             N, -(-9 * N // 16)) > cg_dense.SMEM_LIMIT
     if N + 1 <= Nc:
         nxt = cg_dense.k3_plan(N + 1, Nc)
-        assert (((nxt.kernel, nxt.cluster) != (kernel, cluster))
-                == (N in (0, 28, 92)))
+        assert (nxt.kernel != kernel) == (N in (0, 92))
 
 
 def test_k3_plan_rejects():
@@ -231,18 +230,19 @@ def test_k3_plan_rejects():
 
 
 def test_k3_launch_follows_plan(monkeypatch):
-    """_launch hands each system to the kernel k3_plan names, with the
-    plan's cluster size; neither launcher stands in for the other."""
+    """_launch hands each system to the kernel k3_plan names; neither
+    launcher stands in for the other."""
     seen = []
     monkeypatch.setattr(cg_dense, "_launch_cluster",
-                        lambda Hz, b2, Lp, N, C, **kw: seen.append(
-                            ("cluster", N, C)))
+                        lambda Hz, b2, Lp, N, **kw: seen.append(
+                            ("cluster", N)))
     monkeypatch.setattr(cg_dense, "_launch_grid",
                         lambda Hz, b2, Lp, **kw: seen.append(("grid",)))
-    for N in (20, 49, 100):
+    for N in (20, 49, 92, 93, 100):
         cg_dense._launch(torch.zeros(1152, 1152), None, None, N,
                          max_iters=1)
-    assert seen == [("cluster", 20, 8), ("cluster", 49, 16), ("grid",)]
+    assert seen == [("cluster", 20), ("cluster", 49), ("cluster", 92),
+                    ("grid",), ("grid",)]
 
 
 @pytest.mark.parametrize("q_tol,max_it", [(1e-1, 100), (float("-inf"), 25)])
@@ -315,3 +315,32 @@ def test_kernels_match_plain_on_card():
     chip_smoke.check_k1(dev, errs)
     chip_smoke.check_k2(dev, errs)
     chip_smoke.check_k3(dev, errs)
+    # the system of _cg_system(20, 128, 3) at q_tol 1e-8, through the
+    # residual reset every 3rd iteration: the kernel k3_plan gives
+    # against the twin, a stop one iteration apart passing only as a
+    # float32 tie (chip_smoke.compare_k3)
+    _, Hz, blocks, b = _cg_system(20, 128, 3)
+    chol = torch.linalg.cholesky(torch.as_tensor(blocks).double()).float()
+    Lp = cg_dense.chol_planes(chol.to(dev), 128)
+    b2 = torch.zeros(9, 128, device=dev)
+    b2[:, :20] = torch.as_tensor(b, device=dev).T
+    Hz = torch.as_tensor(Hz, device=dev)
+    for period in (10, 3):
+        kw = dict(min_iters=0, max_iters=100, q_tol=1e-8, r_tol=-1.0,
+                  reset_period=period)
+        chip_smoke.compare_k3(
+            "pcg_dense_cluster",
+            lambda *a, **k: cg_dense._launch(*a, 20, **k), Hz, b2, Lp, 20,
+            kw, errs)
+
+
+@pytest.mark.cuda
+def test_k3_plan_matches_kernel_on_card():
+    """k3_plan's capacity formula equals the cluster kernel's own check
+    (rb_pcg_dense_cluster_plan in csrc/cg_dense.cu) at every N up to
+    MAX_NC."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    import chip_smoke
+
+    chip_smoke.check_k3_plan()
