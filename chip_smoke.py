@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel), checks each kernel against its plain PyTorch twin on the card,
 drives the port's main path through its CLI entry point (`run_app`) on
 three seeded synthetic twins of BAL problems -- ladybug-49 (whose dense
-RCS fits the cluster CG kernel), trafalgar-126 (the grid CG kernel) and
-trafalgar-257 (above the CG kernels' gate) -- cross-checks a small solve
+RCS fits the full-row cluster CG kernel), trafalgar-126 (the half
+cluster CG kernel) and trafalgar-257 (above the CG kernels' gate; and
+once more with pallas_cg="on", the grid CG kernel) -- cross-checks a small solve
 on the card against the CPU, shows from the wrappers' launch counts in
 one more solve of each path (under a profiler trace, which must hold the
 same launches) that each path went through its kernels and what they
@@ -65,6 +66,7 @@ TWINS = {
 KERNEL_NAMES = {"outer81_fold": "outer81_fold_kernel",
                 "w_build": "w_build_kernel",
                 "pcg_dense_cluster": "pcg_dense_cluster_kernel",
+                "pcg_dense_half": "pcg_dense_half_kernel",
                 "pcg_dense_grid": "pcg_dense_kernel"}
 # the JAX package's 20-iteration run of the ladybug twin on a TPU v5e
 # (BENCH_r05.json): printed as a loose cross-check, never asserted
@@ -72,6 +74,12 @@ LADYBUG_TPU_FINAL_COST = 20066.39
 # the port's final cost of the same solve on the card (f32, 7 digits;
 # index_add_ moves the last ones from run to run): held to rel 1e-4
 LADYBUG_CARD_FINAL_COST = 20066.38
+# the trafalgar-126 twin's final cost after 5 f32 LM iterations on the
+# card with the grid K3 (the tree before the half kernel; printed by
+# scripts/kernel_ab.py): held to rel 1e-4
+TRAFALGAR126_CARD_FINAL_COST = None
+# the CLI flag that takes K3 above its gate
+K3_ON = ("--pallas-cg", "on")
 
 # preprocessing of bench.py:28-42 (normalize 100, perturb 0/0.01/0.01
 # with seed 38401, filter 0.1) as CLI flags
@@ -272,10 +280,11 @@ def check_k2(dev, errs: dict) -> None:
 
 
 # K3 test systems (N, Nc), each from seed N: on both sides of k3_plan's
-# switch between the cluster kernel (N <= 92) and the grid kernel, and
-# one unpadded system
-K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (128, 128),
-              (49, 49))
+# switches between the full-row cluster kernel (N <= 92), the half
+# kernel (N <= 128) and the grid kernel, trafalgar-126's size, and one
+# unpadded system
+K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (126, 128),
+              (128, 128), (129, 256), (49, 49))
 # A zeta test with q_tol below 2^-24 stops a float32 CG where q1 - q0
 # falls to about one ulp of q1, so two correct implementations may stop
 # one iteration apart where q's exact decrease is within float32's
@@ -365,20 +374,21 @@ def check_k3_plan() -> None:
 
     lib = kernels.load("cg_dense")
     rows, smem = ctypes.c_int(), ctypes.c_longlong()
-    largest = 0
+    largest = {}
     for N in range(1, cg_dense.MAX_NC + 1):
-        fits = lib.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
+        code = lib.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
                                              ctypes.addressof(smem))
+        kernel = {0: "grid", 1: "cluster", 2: "half"}.get(code, str(code))
         plan = cg_dense.k3_plan(N, N)
-        check((plan.kernel == "cluster") == bool(fits) and (
-            not fits or (plan.rows_per_cta, plan.smem_bytes)
+        check(plan.kernel == kernel and (
+            kernel == "grid" or (plan.rows_per_cta, plan.smem_bytes)
             == (rows.value, smem.value)),
-            f"k3_plan({N}) = {plan}; the kernel's plan: fits {fits}, rows "
+            f"k3_plan({N}) = {plan}; the kernel's plan: {kernel}, rows "
             f"{rows.value}, shared memory {smem.value}")
-        largest = N if fits else largest
-    print(f"[phase 2] k3_plan equals the cluster kernel's capacity check "
-          f"at N = 1..{cg_dense.MAX_NC}: cluster kernel up to N = "
-          f"{largest}", flush=True)
+        largest[kernel] = N
+    print(f"[phase 2] k3_plan equals the cluster kernels' capacity checks "
+          f"at N = 1..{cg_dense.MAX_NC}: largest N per kernel {largest}",
+          flush=True)
 
 
 def check_k3(dev, errs: dict) -> None:
@@ -407,6 +417,9 @@ def check_k3(dev, errs: dict) -> None:
         if plan.kernel == "cluster":
             launchers["pcg_dense_cluster"] = (
                 lambda *a, **k: cg_dense._launch_cluster(*a, N, **k))
+        if cg_dense.half_fits(N):
+            launchers["pcg_dense_half"] = (
+                lambda *a, **k: cg_dense._launch_half(*a, N, **k))
         for q_tol, max_it, period in ((1e-1, 100, 10), (1e-8, 200, 10),
                                       (1e-8, 200, 3),
                                       (float("-inf"), 25, 10)):
@@ -523,9 +536,9 @@ def write_twin(name: str, seed: int = 17) -> Path:
     return path
 
 
-def run_cli(bal_path: Path, iters: int, tag: str) -> dict:
-    """One solve through the port's CLI entry point on the card; returns
-    the ba_log.json it wrote."""
+def run_cli(bal_path: Path, iters: int, tag: str, extra=()) -> dict:
+    """One solve through the port's CLI entry point on the card (extra:
+    more CLI flags); returns the ba_log.json it wrote."""
     from rootba_tpu_torch.cli.bal import run_app
 
     wd = WORK / tag
@@ -536,7 +549,7 @@ def run_cli(bal_path: Path, iters: int, tag: str) -> dict:
     argv = ["-C", str(wd), "--input", str(bal_path), "--device", "cuda",
             "--use-double", "false", "--max-num-iterations", str(iters),
             "--function-tolerance", "0", "--verbosity-level", "1",
-            "--quiet", *PREPROCESS]
+            "--quiet", *PREPROCESS, *extra]
     rc = run_app("chip smoke", argv)
     check(rc == 0, f"{tag}: run_app returned {rc}")
     check(log.exists(), f"{tag}: no ba_log.json written")
@@ -683,7 +696,7 @@ def k3_bound(n_rows: int, lanes: int, iters: int, resets: int) -> dict:
     return bound(nbytes, flops)
 
 
-def counted_run(bal_path: Path, iters: int, tag: str) -> tuple:
+def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
     """One solve of the main path through the CLI, with the launch
     counts set to 0 just before it and read just after, under a profiler
     trace of the card: (its ba_log, {kernel: launches}, {kernel: device
@@ -702,7 +715,7 @@ def counted_run(bal_path: Path, iters: int, tag: str) -> tuple:
         torch.cuda.synchronize()
         prof.step()
         kernels.reset_launches()
-        log = run_cli(bal_path, iters, tag)
+        log = run_cli(bal_path, iters, tag, extra)
         launches = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
         prof.step()
@@ -888,16 +901,22 @@ def main() -> int:
           f"stage seconds {ls['stage_s']}", flush=True)
 
     # phase 3b: trafalgar-126 twin, f32, 5 LM iterations: below the K3
-    # gate but above the cluster kernel's capacity, so the grid kernel
+    # gate but above the full-row kernel's capacity, so the half kernel
     mid = write_twin("trafalgar126")
     with Recorder() as rec_m:
-        ms_ = summarize_log(run_cli(mid, 5, "trafalgar126_record"),
-                            "trafalgar126")
+        run_cli(mid, 5, "trafalgar126_record")
     mid_k3 = check_k3_main_path(rec_m.k3_calls, "phase 3b")
     rec_m.k3_calls.clear()
-    print(f"[phase 3b] trafalgar-126 twin f32, 5 LM iterations: cost "
-          f"{ms_['initial_cost']:.6f} -> {ms_['final_cost']:.6f}, CG "
-          f"iterations {ms_['cg_iters']}", flush=True)
+    ms_ = summarize_log(run_cli(mid, 5, "trafalgar126_timed"),
+                        "trafalgar126")
+    mid_it = sum(ms_["iteration_s"]) / len(ms_["iteration_s"])
+    print(f"[phase 3b] trafalgar-126 twin f32, 5 LM iterations: "
+          f"{mid_it:.4f} s per LM iteration (iteration times "
+          f"{[round(x, 4) for x in ms_['iteration_s']]}), cost "
+          f"{ms_['initial_cost']:.6f} -> {ms_['final_cost']:.6f} (the "
+          f"parent tree on the card: {TRAFALGAR126_CARD_FINAL_COST}), CG "
+          f"iterations {ms_['cg_iters']}, stage seconds {ms_['stage_s']}",
+          flush=True)
 
     # phase 4: trafalgar-257 twin, f32, 5 LM iterations; above the K3
     # gate, so CG runs pcg on dense GEMVs
@@ -918,16 +937,30 @@ def main() -> int:
           f"({held / 2**20:.1f} MiB of it held by this script before "
           f"the solve)", flush=True)
 
+    # phase 4b: the trafalgar-257 twin with pallas_cg="on", f32, 2 LM
+    # iterations: K3 above the gate (Nc = 384), so the grid kernel
+    with Recorder() as rec_on:
+        on = summarize_log(run_cli(traf, 2, "trafalgar_on_record", K3_ON),
+                           "trafalgar_on")
+    on_k3 = check_k3_main_path(rec_on.k3_calls, "phase 4b")
+    rec_on.k3_calls.clear()
+    print(f"[phase 4b] trafalgar-257 twin f32, pallas_cg on, 2 LM "
+          f"iterations: cost {on['initial_cost']:.6f} -> "
+          f"{on['final_cost']:.6f}, CG iterations {on['cg_iters']}",
+          flush=True)
+
     small_cross_check()
 
     # phase 6: the counted solve of each path, under a trace: the launch
     # counts set to 0 just before it and read just after
     paths = {}
     logs = {}
-    for path, bal, iters, k3 in (("ladybug", lady, 20, "pcg_dense_cluster"),
-                                 ("trafalgar126", mid, 5, "pcg_dense_grid"),
-                                 ("trafalgar", traf, 5, None)):
-        log, n, ms = counted_run(bal, iters, path)
+    for path, bal, iters, k3, extra in (
+            ("ladybug", lady, 20, "pcg_dense_cluster", ()),
+            ("trafalgar126", mid, 5, "pcg_dense_half", ()),
+            ("trafalgar", traf, 5, None, ()),
+            ("trafalgar_on", traf, 2, "pcg_dense_grid", K3_ON)):
+        log, n, ms = counted_run(bal, iters, path, extra)
         logs[path] = log
         paths[path] = (n, ms)
         summarize_log(log, path)
@@ -944,15 +977,22 @@ def main() -> int:
     rel = abs(ls["final_cost"] / LADYBUG_CARD_FINAL_COST - 1)
     check(rel < 1e-4, f"ladybug: final cost {ls['final_cost']} is rel "
                       f"{rel} from {LADYBUG_CARD_FINAL_COST}")
+    for cost in (ms_["final_cost"], logs["trafalgar126"]["cost"][-1]):
+        rel = abs(cost / TRAFALGAR126_CARD_FINAL_COST - 1)
+        check(rel < 1e-4, f"trafalgar126: final cost {cost} is rel {rel} "
+                          f"from {TRAFALGAR126_CARD_FINAL_COST}")
 
     # K1/K2 timed at the largest (trafalgar-257) path's inputs, the
-    # cluster K3 at ladybug's, the grid K3 at trafalgar-126's
+    # full-row K3 at ladybug's, the half K3 at trafalgar-126's, the grid
+    # K3 at the pallas_cg="on" trafalgar-257 path's
     attempts = {p: len(lg["iteration_time"]) - 1 for p, lg in logs.items()}
     rows = [k1_row(rec_t, errs), k2_row(rec_t, errs)]
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
-    rows.append(k3_row("pcg_dense_grid", rec_m.largest["pcg_dense"], errs,
-                       mid_k3, compare_grid=False))
+    rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,
+                       mid_k3, compare_grid=True))
+    rows.append(k3_row("pcg_dense_grid", rec_on.largest["pcg_dense"], errs,
+                       on_k3, compare_grid=False))
     # launches and summed device time per LM attempt, from each path's
     # counted solve
     for r in rows:

@@ -9,12 +9,14 @@ preconditioner as 81 planar rows [81, Nc] padded with identity
 `pcg_dense_plain` is the Pallas kernel's loop (`_cg_kernel`) in
 PyTorch, with plain float32 dots.
 
-Two kernels in csrc/cg_dense.cu compute it on the card; `k3_plan`
-chooses one by size before the launch. The cluster kernel holds the
-real 9N x 9N part of Hz in the shared memory of one thread-block
-cluster of 16 CTAs when a CTA's slab fits in 227 KB; the grid kernel (a
-cooperative launch) takes the larger systems, up to MAX_NC lanes. A
-refused launch of either raises.
+Three kernels in csrc/cg_dense.cu compute it on the card; `k3_plan`
+chooses one by size before the launch. Two hold the system in the
+shared memory of one thread-block cluster of 16 CTAs: the full-row
+kernel ("cluster") the real 9N x 9N rows while a CTA's slab fits in
+227 KB, the half kernel ("half") only the upper triangle of the
+symmetric system, up to 128 cameras; the grid kernel (a cooperative
+launch) takes the larger systems, up to MAX_NC lanes. A refused launch
+of any raises.
 """
 
 from __future__ import annotations
@@ -48,12 +50,18 @@ MAX_LANES = 96
 MAX_ROW_CHUNKS = 224
 # rows of Hz one CTA holds at most (kRowsPerWarp x kCWarps)
 MAX_ROWS_PER_CTA = 80
+# the half kernel: camera lanes (kHLaneWarps x 32)
+HALF_MAX_LANES = 128
+# the 45 lower entries of a 9x9 factor that the substitution reads, in
+# the half kernel's packed order (plane45 in csrc/cg_dense.cu: row a's
+# entries after rows 0..a-1's), as planes of the 81-row layout
+PLANES45 = [a * 9 + c for a in range(9) for c in range(a + 1)]
 
 
 class K3Plan(NamedTuple):
-    kernel: str        # "cluster" or "grid"
+    kernel: str        # "cluster", "half" or "grid"
     cluster: int       # CTAs in the cluster (0: the grid kernel)
-    rows_per_cta: int  # real rows of Hz resident in each CTA (0: grid)
+    rows_per_cta: int  # row slots of Hz resident in each CTA (0: grid)
     smem_bytes: int    # dynamic shared memory per block
 
 
@@ -70,11 +78,50 @@ def cluster_smem_bytes(N: int, rows_per_cta: int) -> int:
                      + 2 * CLUSTER * 8 + 6 * 8)
 
 
+def half_lanes(N: int) -> int:
+    """Lanes per feature plane of the half kernel's layout: N rounded up
+    to 8 (half_lanes in csrc/cg_dense.cu), so that its ld = 9 Np rows
+    pair up into a multiple of 4 pairs."""
+    return (N + 7) // 8 * 8
+
+
+def half_pairs_per_cta(N: int) -> int:
+    """Row pairs (r, ld - 1 - r) of the half kernel's triangle per CTA:
+    ceil(ld / 2 / 16) rounded up to 4, ld = 9 half_lanes(N)."""
+    ld = 9 * half_lanes(N)
+    return (-(-(ld // 2) // CLUSTER) + 3) // 4 * 4
+
+
+def half_smem_bytes(N: int, pairs_per_cta: int) -> int:
+    """Shared memory of one CTA of the half kernel (csrc/cg_dense.cu,
+    half_smem_bytes): 48 bytes of mbarriers, then floats -- its triangle
+    share of pairs_per_cta pairs of ld + 4, the vectors p, x, q, q', Hx
+    (ld each), Lp's 45 lower planes (45 Np), the rows' places (4 words
+    each), the column sums received by parity (2 x 16 x 2 pairs_per_cta),
+    the warps' row sums (8 x 2 pairs_per_cta), the pq partials and the
+    reduction scratch."""
+    Np = half_lanes(N)
+    ld = 9 * Np
+    return 48 + 4 * (pairs_per_cta * (ld + 4) + 5 * ld + 45 * Np
+                     + 4 * 2 * pairs_per_cta
+                     + (2 * CLUSTER + 8) * 2 * pairs_per_cta
+                     + 2 * CLUSTER * 8 + 6 * 8)
+
+
+def half_fits(N: int) -> bool:
+    """Whether the half kernel takes N cameras (half_plan in
+    csrc/cg_dense.cu): a lane per thread of its lane warps, and its
+    shared memory within 227 KB."""
+    return (1 <= N <= HALF_MAX_LANES
+            and half_smem_bytes(N, half_pairs_per_cta(N)) <= SMEM_LIMIT)
+
+
 def k3_plan(N: int, Nc: int) -> K3Plan:
     """Which K3 kernel solves an N-camera system on Nc lanes: the
-    cluster kernel while its lanes, rows and shared memory hold the
-    system (cluster_plan in csrc/cg_dense.cu), else the grid kernel up to
-    MAX_NC lanes; raises above."""
+    full-row cluster kernel while its lanes, rows and shared memory hold
+    the system (cluster_plan in csrc/cg_dense.cu), else the half kernel
+    while its lanes and shared memory do (half_plan), else the grid
+    kernel up to MAX_NC lanes; raises above."""
     if not 0 <= N <= Nc:
         raise ValueError(f"k3_plan: needs 0 <= N <= Nc, got N={N}, Nc={Nc}")
     rows = -(-9 * N // CLUSTER)
@@ -82,6 +129,9 @@ def k3_plan(N: int, Nc: int) -> K3Plan:
     if (1 <= N <= MAX_LANES and 9 * ((N + 3) // 4) <= MAX_ROW_CHUNKS
             and rows <= MAX_ROWS_PER_CTA and smem <= SMEM_LIMIT):
         return K3Plan("cluster", CLUSTER, rows, smem)
+    if half_fits(N):
+        pairs = half_pairs_per_cta(N)
+        return K3Plan("half", CLUSTER, 2 * pairs, half_smem_bytes(N, pairs))
     if Nc > MAX_NC:
         raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
                          f"grid kernel's shared-memory limit)")
@@ -97,20 +147,26 @@ def chol_planes(chol: torch.Tensor, Nc: int) -> torch.Tensor:
     return torch.cat([chol.reshape(N, 81).T, pad], dim=1).contiguous()
 
 
-def _solve_planar(Lp: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
-    """(L L')^-1 r for planar factors Lp [81, Nc] and r2 [9, Nc]."""
+def _solve_planar(Lp: torch.Tensor, r2: torch.Tensor,
+                  packed: bool = False) -> torch.Tensor:
+    """(L L')^-1 r for planar factors Lp [81, Nc] and r2 [9, Nc]; with
+    `packed`, Lp holds only the 45 planes PLANES45 (Lp[PLANES45]), as the
+    half kernel keeps them."""
+    def at(a, c):
+        return Lp[a * (a + 1) // 2 + c] if packed else Lp[a * D + c]
+
     y = [None] * D
     for i in range(D):
         s = r2[i]
         for k in range(i):
-            s = s - Lp[i * D + k] * y[k]
-        y[i] = s / Lp[i * D + i]
+            s = s - at(i, k) * y[k]
+        y[i] = s / at(i, i)
     z = [None] * D
     for i in reversed(range(D)):
         s = y[i]
         for k in range(i + 1, D):
-            s = s - Lp[k * D + i] * z[k]
-        z[i] = s / Lp[i * D + i]
+            s = s - at(k, i) * z[k]
+        z[i] = s / at(i, i)
     return torch.stack(z, dim=0)
 
 
@@ -183,19 +239,31 @@ def pcg_dense_plain(Hz, b2, Lp, *, min_iters: int, max_iters: int,
     return x, stats
 
 
-def _launch_cluster(Hz, b2, Lp, N, *, min_iters, max_iters, q_tol, r_tol,
-                    reset_period):
-    """The cluster kernel on N real cameras of the Nc-lane system."""
+def _launch_in_cluster(kernel, Hz, b2, Lp, N, *, min_iters, max_iters,
+                       q_tol, r_tol, reset_period):
+    """A cluster kernel ("cluster" or "half") on N real cameras of the
+    Nc-lane system."""
     Nc = Hz.shape[0] // D
     lib = kernels.load("cg_dense")
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
-    kernels.check(lib.rb_pcg_dense_cluster_f32(
+    entry = getattr(lib, f"rb_pcg_dense_{kernel}_f32")
+    kernels.check(entry(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
         stats.data_ptr(), N, Nc, max_iters, min_iters, q_tol, r_tol,
-        reset_period, kernels.stream_ptr(Hz)), "pcg_dense_cluster")
-    kernels.LAUNCHES["pcg_dense_cluster"] += 1
+        reset_period, kernels.stream_ptr(Hz)), f"pcg_dense_{kernel}")
+    kernels.LAUNCHES[f"pcg_dense_{kernel}"] += 1
     return x2, stats
+
+
+def _launch_cluster(Hz, b2, Lp, N, **kw):
+    """The full-row cluster kernel."""
+    return _launch_in_cluster("cluster", Hz, b2, Lp, N, **kw)
+
+
+def _launch_half(Hz, b2, Lp, N, **kw):
+    """The half (upper-triangle) cluster kernel."""
+    return _launch_in_cluster("half", Hz, b2, Lp, N, **kw)
 
 
 def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
@@ -224,6 +292,8 @@ def _launch(Hz, b2, Lp, N, **kw):
     plan = k3_plan(N, Hz.shape[0] // D)
     if plan.kernel == "cluster":
         return _launch_cluster(Hz, b2, Lp, N, **kw)
+    if plan.kernel == "half":
+        return _launch_half(Hz, b2, Lp, N, **kw)
     return _launch_grid(Hz, b2, Lp, **kw)
 
 

@@ -39,7 +39,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # its kernel, and nowhere else (its plain CPU path does not count), so
 # a run can show that its path went through the kernels
 LAUNCHES: Dict[str, int] = {"outer81_fold": 0, "w_build": 0,
-                            "pcg_dense_cluster": 0, "pcg_dense_grid": 0}
+                            "pcg_dense_cluster": 0, "pcg_dense_half": 0,
+                            "pcg_dense_grid": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +67,8 @@ _SIGNATURES = {
                              _F, _I, _P),
         "rb_pcg_dense_cluster_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _F, _F, _I, _P),
+        "rb_pcg_dense_half_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                  _F, _I, _P),
         "rb_pcg_dense_cluster_plan": (_I, _P, _P),
     },
 }

@@ -8,12 +8,13 @@
    on 2^33 random pairs with exponents in [-70, 70] (inside and outside
    the fast path's range). The check kernel includes cg_dense.cu itself.
 2. Where float32 CG stops at q_tol 1e-8: for the phase-2 system sizes of
-   chip_smoke.py and seeds N, N + 1000, ..., the iteration counts of the
-   plain twin and both K3 kernels (reset every 10 and every 3); where
-   they differ, the exact (float64) zeta at the earlier stop beside
+   chip_smoke.py (N = 12 to 129, the half kernel's 93-128 among them) and
+   seeds N, N + 1000, ..., the iteration counts of the plain twin and
+   of each K3 kernel that takes the system (reset every 10 and every 3);
+   where they differ, the exact (float64) zeta at the earlier stop beside
    chip_smoke's tie band; and for one system the float64 zeta of each
    iteration's x (q1 = -x.(b + r), r = b - Hx) from the twin and the
-   cluster kernel.
+   full-row cluster kernel.
 """
 
 from __future__ import annotations
@@ -109,6 +110,8 @@ def main() -> int:
     ties = within = 0
     for N, Nc in cs.K3_SYSTEMS:
         plan = cg_dense.k3_plan(N, Nc)
+        names = ["grid"] + (["cluster"] if plan.kernel == "cluster" else [])
+        names += ["half"] if cg_dense.half_fits(N) else []
         for k in range(8):
             seed = N + 1000 * k
             Hz, blocks, b = cs.spd_system(N, Nc, seed=seed)
@@ -124,9 +127,9 @@ def main() -> int:
                           r_tol=-1.0, reset_period=period)
                 its = [int(cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)[1][0]),
                        int(cg_dense._launch_grid(Hz, b2, Lp, **kw)[1][0])]
-                if plan.kernel == "cluster":
-                    its.append(int(cg_dense._launch_cluster(
-                        Hz, b2, Lp, N, **kw)[1][0]))
+                for name in names[1:]:
+                    launch = getattr(cg_dense, f"_launch_{name}")
+                    its.append(int(launch(Hz, b2, Lp, N, **kw)[1][0]))
                 counts.append(its)
                 if len(set(its)) > 1:
                     m = min(its)
@@ -139,8 +142,8 @@ def main() -> int:
                                  f"{z:.3e}, band {m * cs.ZETA_BAND:.3e}"
                                  f"{'' if ok else ' OUTSIDE'}")
             same = all(len(set(x)) == 1 for x in counts)
-            say(f"N={N} Nc={Nc} seed={seed}: stops (twin, grid"
-                f"{', cluster' if plan.kernel == 'cluster' else ''}) at "
+            say(f"N={N} Nc={Nc} seed={seed}: stops (twin, "
+                f"{', '.join(names)}) at "
                 f"q_tol 1e-8, reset 10: {counts[0]}, reset 3: {counts[1]}"
                 f"{'' if same else '  <- differ: ' + '; '.join(notes)}")
     say(f"stops that differ: {ties}; one iteration apart within the tie "

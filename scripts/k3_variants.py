@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Design variants of K3's cluster kernel against the kernel as it is,
-on one card.
+"""Design variants of K3's cluster kernels against the kernels as they
+are, on one card.
 
     python3 scripts/k3_variants.py [OUT.json]
 
 Each variant is csrc/cg_dense.cu with one text edit, built by nvcc into
-build/k3_variants/:
+build/k3_variants/. Of the full-row kernel (pcg_dense_cluster_kernel):
 
   current      the kernel as it is: 16 CTAs, one thread per camera lane
                runs the lane's 9x9 substitution in registers, the slab
                copied by 16-byte cp.async
+  exchange2    a second, dependent st.async round per iteration that
+               sends every GEMV row again (the cost of the half kernel's
+               extra exchange)
+  stream_half  half of each CTA's slab copied again from Hz (L2) every
+               iteration, after the GEMVs, awaited before the next GEMV
+               (the cost of streaming the rows that do not fit)
   cluster8     8 CTAs (each holds twice the rows)
   precond9     the loop's preconditioner spread over 9 threads per lane
                (three lanes per warp), each step's quotient broadcast to
@@ -19,15 +25,21 @@ build/k3_variants/:
   slab_tma     the slab copied by one TMA bulk copy (cp.async.bulk onto an
                mbarrier) per row segment of Np lanes
 
+and of the half kernel (pcg_dense_half_kernel):
+
+  half              the kernel as it is
+  half_precond_off  no preconditioner in the loop (z = r)
+
 On the synthetic SPD systems of chip_smoke.spd_system (seed N) with
-N = 12, 49 and 92 cameras on 128 lanes: device time (chip_smoke.device_ms,
+N = 12, 49 and 92 cameras (the full-row kernel) and 49, 92 and 126 (the
+half kernel) on 128 lanes: device time (chip_smoke.device_ms,
 the kernel once per call in the trace) at 0 and at 20 fixed CG iterations
 (q_tol -inf, reset every 10). Per iteration: (t20 - t0) / 20; fixed cost
 (launch, prologue, epilogue): t0. The variants run in turns, forward and
 then backward, and each time is the mean of the two (of those whose
 trace holds the kernel once per call, in at most three traces each). x
 after 20 iterations is held against the twin at rtol 2e-4 / atol 2e-5,
-except for precond_off (another algorithm). ptxas's register count of the kernel is
+except without a preconditioner (another algorithm). ptxas's register count of the kernel is
 printed for each variant. Prints one JSON object, and writes it to
 OUT.json when given.
 """
@@ -47,7 +59,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 BUILD = ROOT / "build" / "k3_variants"
-SYSTEMS = (12, 49, 92)
+SYSTEMS = {"cluster": (12, 49, 92), "half": (49, 92, 126)}
 ITERS = 20
 
 PRECOND9 = r'''
@@ -103,8 +115,86 @@ SLAB_WAIT = """  // the slab, before the first GEMV (whose barrier publishes it)
   asm volatile("cp.async.wait_all;\\n" ::: "memory");
 """
 
+RESTREAM = r'''
+// This warp's slab rows k >= nr / 2 copied again from Hz (16-byte
+// cp.async; the inputs' rows aligned as the prologue's vec4 path has
+// them).
+__device__ void restream(const float* H, float* Hs, int row0, int nr, int N,
+                         int Nc, int Np, int ld) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q4 = Np / 4;
+  const size_t Mz = static_cast<size_t>(D) * Nc;
+  for (int k = nr / 2; k < nr; ++k) {
+    const int rr = warp + k * kCWarps;
+    const int f = (row0 + rr) / N;
+    const int j = row0 + rr - f * N;
+    const float* src = H + static_cast<size_t>(f * Nc + j) * Mz;
+    float* dst = Hs + rr * ld;
+    for (int c = lane; c < D * q4; c += 32) {
+      const int seg = c / q4;
+      const int off = 4 * (c - seg * q4);
+      cp_async16(dst + seg * Np + off,
+                 src + static_cast<size_t>(seg) * Nc + off);
+    }
+  }
+}
+
+'''
+GEMV_SYNC = "    __syncthreads();\n\n    gemv_cluster(Hs, ps,"
+Q_WAIT = ("    mbar_wait(qbar + pb, static_cast<uint32_t>(((i - 1) >> 1) "
+          "& 1));\n")
+
+HALF_SOLVE = """    rz = 0.f;
+    if (own) {
+      solve9<true>(L, Np, dv, iv, rv, zv);
+"""
+
+# name -> (the kernel it edits, its edits)
 VARIANTS = {
     "current": [],
+    # the cost of a second, dependent exchange per iteration: after the
+    # GEMV's round, every warp sends its rows' sums again to every CTA
+    # (onto a second pair of mbarriers, by parity), and the iteration goes
+    # on with the second copy of q
+    "exchange2": [
+        ("constexpr int kCBarBytes = 32;", "constexpr int kCBarBytes = 48;"),
+        (SMEM_TAIL, "2 * kCluster * kCWarps + 6 * kCWarps + 2 * ld) *"),
+        (RED_LINE, RED_LINE + "  float* q2b = red + 6 * kCWarps;\n"),
+        ("    mbar_init(hbar);\n", "    mbar_init(hbar);\n"
+                                  "    mbar_init(qbar + 3);\n"
+                                  "    mbar_init(qbar + 4);\n"),
+        ("  const uint32_t r_hbar = map_rank(smem_u32(hbar), t);\n",
+         "  const uint32_t r_hbar = map_rank(smem_u32(hbar), t);\n"
+         "  const uint32_t r_q2 = map_rank(smem_u32(q2b), t);\n"
+         "  const uint32_t r_x2bar = map_rank(smem_u32(qbar + 3), t);\n"),
+        ("    if (tid == 0) mbar_expect(qbar + pb, q_bytes);\n",
+         "    if (tid == 0) mbar_expect(qbar + pb, q_bytes);\n"
+         "    if (tid == 0) mbar_expect(qbar + 3 + pb, h_bytes);\n"),
+        (Q_WAIT, Q_WAIT + """#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      if (k < nr && lane < C) {
+        st_async(r_q2 + 4 * (pb * ld + vec[k]), q[vec[k]], r_x2bar + 8 * pb);
+      }
+    }
+    mbar_wait(qbar + 3 + pb, static_cast<uint32_t>(((i - 1) >> 1) & 1));
+    q = q2b + pb * ld;
+"""),
+    ],
+    # the cost of streaming half of each CTA's slab from L2 every
+    # iteration: each warp copies its rows k >= nr / 2 again after the
+    # iteration's GEMVs (overlapping the preconditioner, the block sum and
+    # the next p) and waits for them before the next GEMV
+    "stream_half": [
+        (KERNEL_HEAD, RESTREAM + KERNEL_HEAD),
+        ("    // q1 and |r|^2 of this iteration, and already r . z of the "
+         "next\n",
+         "    restream(H, Hs, row0, nr, N, Nc, Np, ld);\n"
+         "    // q1 and |r|^2 of this iteration, and already r . z of the "
+         "next\n"),
+        (GEMV_SYNC, '    asm volatile("cp.async.wait_all;\\n" ::: '
+                    '"memory");\n' + GEMV_SYNC),
+    ],
     "cluster8": [("constexpr int kCluster = 16;", "constexpr int kCluster = 8;")],
     "precond9": [
         (KERNEL_HEAD, PRECOND9 + KERNEL_HEAD),
@@ -160,9 +250,18 @@ VARIANTS = {
 }
 
 
+VARIANTS = {k: ("cluster", v) for k, v in VARIANTS.items()}
+VARIANTS["half"] = ("half", [])
+VARIANTS["half_precond_off"] = ("half", [(HALF_SOLVE, """    rz = 0.f;
+    if (own) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) zv[k] = rv[k];
+""")])
+
+
 def variant_source(name: str) -> str:
     src = (ROOT / "rootba_tpu_torch" / "csrc" / "cg_dense.cu").read_text()
-    for old, new in VARIANTS[name]:
+    for old, new in VARIANTS[name][1]:
         if old == "SLAB":
             a, b = src.index(SLAB_START), src.index(SLAB_END)
             src = src[:a] + new + src[b:]
@@ -190,13 +289,14 @@ def build(kernels) -> dict:
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         cs.check(proc.returncode == 0, f"nvcc failed for {name}:\n{log}")
+        kernel = VARIANTS[name][0]
         entry = next(c for c in log.split("Compiling entry function")[1:]
-                     if "pcg_dense_cluster_kernel" in c.splitlines()[0])
+                     if f"pcg_dense_{kernel}_kernel" in c.splitlines()[0])
         regs = int(re.search(r"Used (\d+) registers", entry).group(1))
         lib = ctypes.CDLL(str(so))
-        f = lib.rb_pcg_dense_cluster_f32
+        f = getattr(lib, f"rb_pcg_dense_{kernel}_f32")
         f.argtypes = list(kernels._SIGNATURES["cg_dense"][
-            "rb_pcg_dense_cluster_f32"])
+            f"rb_pcg_dense_{kernel}_f32"])
         f.restype = ctypes.c_int
         out[name] = (f, regs)
     return out
@@ -219,7 +319,7 @@ def main() -> int:
            "registers": {k: v[1] for k, v in libs.items()}, "systems": {}}
     print(f"{res['card']}; registers per thread: {res['registers']}",
           flush=True)
-    for N in SYSTEMS:
+    for N in sorted(set(SYSTEMS["cluster"]) | set(SYSTEMS["half"])):
         Nc = 128
         Hz, blocks, b = cs.spd_system(N, Nc, seed=N)
         Hz = torch.as_tensor(Hz, device=dev)
@@ -229,8 +329,9 @@ def main() -> int:
         b2[:, :N] = torch.as_tensor(b, device=dev).T
         x2 = torch.empty((9, Nc), device=dev)
         stats = torch.empty(4, device=dev)
-        names = [k for k in VARIANTS
-                 if not (k == "cluster8" and -(-9 * N // 8) > 80)]
+        names = [k for k, (kernel, _) in VARIANTS.items()
+                 if N in SYSTEMS[kernel]
+                 and not (k == "cluster8" and -(-9 * N // 8) > 80)]
 
         def launch(name, iters):
             kernels.check(libs[name][0](
@@ -246,7 +347,7 @@ def main() -> int:
         for name in names:
             got = launch(name, ITERS).clone()
             errs[name] = cs.max_abs(got, ref)
-            if name != "precond_off":
+            if "precond_off" not in name:
                 cs.check(cs.close(got, ref, 2e-4, 2e-5),
                          f"{name} N={N}: max abs err {errs[name]}")
         times = {k: {0: [], ITERS: []} for k in names}
@@ -257,7 +358,8 @@ def main() -> int:
                     # chip_smoke.both; after three, the sample is missing
                     for _ in range(3):
                         ms, seen = cs.device_ms(lambda: launch(name, iters))
-                        if seen.get("pcg_dense_cluster_kernel") == 1.0:
+                        kname = f"pcg_dense_{VARIANTS[name][0]}_kernel"
+                        if seen.get(kname) == 1.0:
                             times[name][iters].append(ms)
                             break
                     else:

@@ -6,19 +6,25 @@
 OLD_CHECKOUT is another checkout of the repository (say, the parent
 commit, unpacked with `git archive`). Its CUDA sources are built by its
 own ops/kernels.py into its own build/ directory. The script records
-the main path's inputs with chip_smoke.py's Recorder -- the ladybug-49
-twin's K3 call with the most CG iterations and the trafalgar-257 twin's
-largest K1 call -- and times the old and this tree's kernels on them in
-turns (old, new, new, old) by profiler device time (chip_smoke.device_ms,
-one launch per call in the trace). K1 runs in f32 (the traced paths'
-precision) and f64. It prints one JSON object, and writes it to OUT.json
-when given.
+the main path's inputs with chip_smoke.py's Recorder -- the K3 call
+with the most CG iterations of the ladybug-49 twin (20 LM iterations)
+and of the trafalgar-126 twin (5), and the trafalgar-257 twin's largest
+K1 call -- and times the old and this tree's kernels on them in turns
+(old, new, new, old) by profiler device time (chip_smoke.device_ms, one
+launch per call in the trace). Each tree's K3 is the kernel its own
+capacity check (rb_pcg_dense_cluster_plan) chooses. K1 runs in f32 (the
+traced paths' precision) and f64. It also runs the trafalgar-126 twin's
+5 f32 LM iterations through the old tree's CLI, in a process of its
+own, and prints that final cost beside this tree's. It prints one JSON
+object, and writes it to OUT.json when given.
 """
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -37,11 +43,70 @@ def old_kernels(old_root: Path):
     return mod
 
 
+# the old tree's CLI on the trafalgar-126 twin, in its own process
+OLD_T126 = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+cs.WORK.mkdir(parents=True, exist_ok=True)
+d = cs.run_cli(cs.write_twin("trafalgar126"), 5, "ab_trafalgar126_old")
+print(json.dumps(d["cost"]))
+"""
+# a capacity check's answer -> (entry, kernel name in a trace)
+K3_ENTRIES = {0: ("rb_pcg_dense_f32", "pcg_dense_kernel"),
+              1: ("rb_pcg_dense_cluster_f32", "pcg_dense_cluster_kernel"),
+              2: ("rb_pcg_dense_half_f32", "pcg_dense_half_kernel")}
+
+
 def timed(name: str, fn, expect: str, reps: int = 20) -> float:
     ms, names = cs.device_ms(fn, reps)
     cs.check(sum(v for n, v in names.items() if expect in n) == 1.0,
              f"{name}: {expect} not once per call in the trace {names}")
     return ms
+
+
+def k3_ab(old_cg, call, order, stream) -> dict:
+    """The old tree's K3 and this tree's on one recorded main-path call,
+    each the kernel its own tree's plan gives: device ms in `order`, the
+    CG iterations of each, and x's largest difference."""
+    import torch
+
+    from rootba_tpu_torch.ops import cg_dense
+
+    _, (Hz, chol, b), kw = call
+    Lp, b2 = cs.k3_inputs(Hz, chol, b)
+    N, Mz = b.shape[0], Hz.shape[0]
+    ckw = dict(min_iters=kw["min_num_iterations"],
+               max_iters=kw["max_num_iterations"], q_tol=kw["q_tolerance"],
+               r_tol=kw["r_tolerance"], reset_period=10)
+    x2 = torch.empty((9, Mz // 9), dtype=torch.float32, device=Hz.device)
+    stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
+    work = torch.empty(3 * Mz, dtype=torch.float32, device=Hz.device)
+    rows, smem = ctypes.c_int(), ctypes.c_longlong()
+    code = old_cg.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
+                                            ctypes.addressof(smem))
+    entry, old_name = K3_ENTRIES[code]
+    args = (Mz, Mz // 9) if code == 0 else (N, Mz // 9)
+    head = ((work.data_ptr(),) if code == 0 else ())
+
+    def k3_old():
+        cs.check(getattr(old_cg, entry)(
+            Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
+            stats.data_ptr(), *head, *args, ckw["max_iters"],
+            ckw["min_iters"], ckw["q_tol"], ckw["r_tol"],
+            ckw["reset_period"], stream) == 0, f"old {entry}")
+        return x2, stats
+
+    fns = {"old": k3_old,
+           "new": lambda: cg_dense._launch(Hz, b2, Lp, N, **ckw)}
+    names = {"old": old_name,
+             "new": cs.KERNEL_NAMES[
+                 f"pcg_dense_{cg_dense.k3_plan(N, Mz // 9).kernel}"]}
+    outs = {k: tuple(t.clone() for t in fns[k]()) for k in fns}
+    return dict(shape=f"M={Mz} N={N}", kernels=names,
+                cg_iters={k: int(o[1][0]) for k, o in outs.items()},
+                max_abs_diff=cs.max_abs(outs["old"][0], outs["new"][0]),
+                ms=[timed(k, fns[k], names[k]) for k in order])
 
 
 def main() -> int:
@@ -52,7 +117,8 @@ def main() -> int:
         return 2
     from rootba_tpu_torch.ops import cg_dense, fold, kernels
 
-    old = old_kernels(Path(sys.argv[1]).resolve())
+    old_root = Path(sys.argv[1]).resolve()
+    old = old_kernels(old_root)
     # resolved now: the CLI runs below change the working directory
     out_path = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else None
     old.build_all()
@@ -61,6 +127,12 @@ def main() -> int:
     cs.WORK.mkdir(parents=True, exist_ok=True)
     with cs.Recorder() as rec:
         cs.run_cli(cs.write_twin("ladybug"), 20, "ab_ladybug")
+    with cs.Recorder() as rec_m:
+        new_cost = cs.run_cli(cs.write_twin("trafalgar126"), 5,
+                              "ab_trafalgar126")["cost"]
+    old_cost = json.loads(subprocess.run(
+        [sys.executable, "-c", OLD_T126.format(root=str(old_root))],
+        check=True, capture_output=True, text=True).stdout.splitlines()[-1])
     with cs.Recorder() as rec_t:
         cs.run_cli(cs.write_twin("trafalgar"), 1, "ab_trafalgar")
     stream = torch.cuda.current_stream().cuda_stream
@@ -86,32 +158,12 @@ def main() -> int:
             shape=f"M={M} K={K9 // 9} W={W}", max_abs_diff=diff,
             ms=[timed(k, fns[k], "outer81_fold_kernel") for k in res["order"]])
 
-    # K3 at the ladybug call with the most CG iterations
-    _, (Hz, chol, b), kw = rec.largest["pcg_dense"]
-    Lp, b2 = cs.k3_inputs(Hz, chol, b)
-    N, Mz = b.shape[0], Hz.shape[0]
-    ckw = dict(min_iters=kw["min_num_iterations"],
-               max_iters=kw["max_num_iterations"], q_tol=kw["q_tolerance"],
-               r_tol=kw["r_tolerance"], reset_period=10)
-    x2 = torch.empty((9, Mz // 9), dtype=torch.float32, device=Hz.device)
-    stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
-    work = torch.empty(3 * Mz, dtype=torch.float32, device=Hz.device)
-
-    def k3_old():
-        old.check(old_cg.rb_pcg_dense_f32(
-            Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
-            stats.data_ptr(), work.data_ptr(), Mz, Mz // 9, ckw["max_iters"],
-            ckw["min_iters"], ckw["q_tol"], ckw["r_tol"],
-            ckw["reset_period"], stream), "old pcg_dense")
-        return x2, stats
-
-    fns = {"old": k3_old,
-           "new": lambda: cg_dense._launch(Hz, b2, Lp, N, **ckw)}
-    names = {"old": "pcg_dense_kernel",
-             "new": f"pcg_dense_{cg_dense.k3_plan(N, Mz // 9).kernel}"}
-    iters = {k: int(fns[k]()[1][0]) for k in fns}
-    res["k3"] = dict(shape=f"M={Mz} N={N}", cg_iters=iters,
-                     ms=[timed(k, fns[k], names[k]) for k in res["order"]])
+    # K3 at the call with the most CG iterations of each path
+    for tag, r in (("k3", rec), ("k3_trafalgar126", rec_m)):
+        res[tag] = k3_ab(old_cg, r.largest["pcg_dense"], res["order"],
+                         stream)
+    res["trafalgar126_final_cost"] = {"old": old_cost[-1],
+                                      "new": new_cost[-1]}
     line = json.dumps(res)
     print(line)
     if out_path is not None:

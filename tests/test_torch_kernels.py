@@ -195,31 +195,176 @@ def test_pcg_dense_zero_rhs_and_padding():
     (49, 128, "cluster", 28),    # ladybug-49: 441 real rows of 1152
     (49, 49, "cluster", 28),     # unpadded
     (92, 128, "cluster", 52),    # the largest slab a CTA holds
-    (93, 128, "grid", 0),
-    (126, 128, "grid", 0),       # trafalgar-126
+    (93, 128, "half", 56),
+    (100, 128, "half", 64),
+    (126, 128, "half", 72),      # trafalgar-126
+    (128, 128, "half", 72),      # the K3 gate's largest system
+    (129, 256, "grid", 0),
     (0, 128, "grid", 0),
     (300, 1024, "grid", 0),      # pallas_cg="on" up to MAX_NC
 ])
 def test_k3_plan(N, Nc, kernel, rows):
-    """K3's size switch: the cluster kernel (16 CTAs) while a CTA's slab
-    of ceil(9N / 16) real rows, its vectors and Lp fit in 227 KB of shared
-    memory; else the grid kernel. One camera more moves N = 0 and N = 92
-    to the other kernel. (The card test holds k3_plan equal to the
-    kernel's own capacity check.)"""
+    """K3's size switches: the full-row cluster kernel (16 CTAs) while a
+    CTA's slab of ceil(9N / 16) real rows, its vectors and Lp fit in 227
+    KB of shared memory; then the half kernel (16 CTAs, 2 pairs_per
+    row slots of the upper triangle each) up to 128 cameras; else the
+    grid kernel. One camera more moves N = 0, 92 and 128 to another
+    kernel. (The card test holds k3_plan equal to the kernel's own
+    capacity checks.)"""
     plan = cg_dense.k3_plan(N, Nc)
     assert (plan.kernel, plan.rows_per_cta) == (kernel, rows)
-    assert plan.cluster == (cg_dense.CLUSTER if kernel == "cluster" else 0)
+    assert plan.cluster == (0 if kernel == "grid" else cg_dense.CLUSTER)
     assert plan.smem_bytes <= cg_dense.SMEM_LIMIT
+    full_fits = 1 <= N <= cg_dense.MAX_LANES and cg_dense.cluster_smem_bytes(
+        N, -(-9 * N // 16)) <= cg_dense.SMEM_LIMIT
     if kernel == "cluster":
         assert rows == -(-9 * N // 16) <= cg_dense.MAX_ROWS_PER_CTA
-        assert N <= cg_dense.MAX_LANES
+        assert full_fits
         assert plan.smem_bytes == cg_dense.cluster_smem_bytes(N, rows)
+    elif kernel == "half":
+        assert not full_fits and cg_dense.half_fits(N)
+        assert rows == 2 * cg_dense.half_pairs_per_cta(N)
+        assert plan.smem_bytes == cg_dense.half_smem_bytes(N, rows // 2)
     else:
-        assert N == 0 or cg_dense.cluster_smem_bytes(
-            N, -(-9 * N // 16)) > cg_dense.SMEM_LIMIT
+        assert not full_fits and not cg_dense.half_fits(N)
     if N + 1 <= Nc:
         nxt = cg_dense.k3_plan(N + 1, Nc)
-        assert (nxt.kernel != kernel) == (N in (0, 92))
+        assert (nxt.kernel != kernel) == (N in (0, 92, 128))
+
+
+def test_packed_factor_solves_like_planes():
+    """The half kernel keeps only the 45 lower planes of the factor
+    (PLANES45, csrc/cg_dense.cu plane45); the substitution on them is the
+    one on the 81 planes, bit for bit (the same products and
+    differences in the same order)."""
+    rng = np.random.default_rng(4)
+    N = 37
+    A = rng.standard_normal((N, 9, 12)).astype(np.float32)
+    chol = np.linalg.cholesky(A @ A.transpose(0, 2, 1)).astype(np.float32)
+    Lp = cg_dense.chol_planes(_t(chol), 40)
+    r = _t(rng.standard_normal((9, 40)).astype(np.float32))
+    want = cg_dense._solve_planar(Lp, r)
+    got = cg_dense._solve_planar(Lp[cg_dense.PLANES45], r, packed=True)
+    assert len(cg_dense.PLANES45) == 45
+    assert torch.equal(got, want)
+
+
+def _half_deal(N):
+    """The half kernel's deal of the triangle (csrc/cg_dense.cu:
+    half_row, the prologue's copy, half_plan): for each of the 16 CTAs
+    its pair count and, per row (the low rows, then the high rows, each
+    in column order), (row r, offset of column 0 in the CTA's share, its
+    slot). Row r of the padded layout (ld = 9 Np rows, Np = N rounded up
+    to 8) pairs with ld - 1 - r and keeps columns c >= r & ~3; pairs are
+    stored one after another."""
+    Np = cg_dense.half_lanes(N)
+    ld = 9 * Np
+    pp = cg_dense.half_pairs_per_cta(N)
+    ctas = []
+    for t in range(cg_dense.CLUSTER):
+        pairs = max(0, min(pp, ld // 2 - t * pp))
+        rows = []
+        for ri in range(2 * pairs):
+            hi = ri >= pairs
+            l = 2 * pairs - 1 - ri if hi else ri
+            lo = t * pp + l
+            r = ld - 1 - lo if hi else lo
+            base = l * (ld + 4) + ((ld - (lo & ~3)) if hi else 0) - (r & ~3)
+            rows.append((r, base, 2 * pp - 2 * pairs + ri if hi else ri))
+        ctas.append((pairs, rows))
+    return ld, pp, ctas
+
+
+@pytest.mark.parametrize("N", [12, 49, 93, 100, 117, 126, 128])
+def test_half_deal_tiles_the_triangle(N):
+    """Every row of the padded layout lands in exactly one CTA; a CTA's
+    rows tile its share of pairs_per x (ld + 4) floats with no gap or
+    overlap; the CTAs hold pairs_per pairs each (a multiple of 4), so the
+    same entry count, until the pairs run out (at most one CTA holds
+    fewer but not none; all 16 hold pairs_per at Np = 128: N = 121..128);
+    each column's receiving (CTA, slot), as the kernel computes it, holds
+    that row, and four columns from a multiple of 4 share a CTA and take
+    four slots in a row from a multiple of 4 (one 16-byte store); and the
+    plan's shared memory holds the share."""
+    ld, pp, ctas = _half_deal(N)
+    seen = []
+    for t, (pairs, rows) in enumerate(ctas):
+        used = np.zeros(pp * (ld + 4), dtype=int)
+        for r, base, _ in rows:
+            used[base + (r & ~3):base + ld] += 1
+            seen.append(r)
+        assert (used[:pairs * (ld + 4)] == 1).all()
+        assert not used[pairs * (ld + 4):].any()
+    assert sorted(seen) == list(range(ld))
+    counts = [pairs for pairs, _ in ctas]
+    assert sum(counts) == ld // 2
+    assert len([c for c in counts if 0 < c < pp]) <= 1
+    assert counts == sorted(counts, reverse=True)
+    assert pp % 4 == 0 and ld % 8 == 0
+    if cg_dense.half_lanes(N) == 128:
+        assert counts == [pp] * cg_dense.CLUSTER
+    P = ld // 2
+    for c4 in range(0, ld, 4):
+        k = c4 if c4 < P else ld - 1 - c4
+        t = k // pp
+        slot = c4 - t * pp if c4 < P else pp + c4 - (ld - (t + 1) * pp)
+        assert slot % 4 == 0
+        by_slot = {sl: r for r, _, sl in ctas[t][1]}
+        for q in range(4):
+            assert by_slot[slot + q] == c4 + q
+    assert cg_dense.half_smem_bytes(N, pp) - 4 * pp * (ld + 4) > 0
+    assert cg_dense.k3_plan(N, 128).smem_bytes <= cg_dense.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("N", [49, 93, 126, 128])
+def test_half_product_model_matches_mv(N):
+    """A plain model of the half kernel's product H p: each CTA's share
+    filled from H as its prologue copies it; per warp w (the columns of
+    the 128-column chunks k = w mod 8), the row sums over c >= r; per CTA,
+    the column sums over its rows r < c; each row's 16 column sums and 8
+    row sums added as the kernel adds them (lane l: column sum l plus
+    row sum l, then an xor butterfly over 16 lanes). In float64 this is
+    H p to 1e-12 (the deal covers each entry once); in float32 it is
+    torch.mv of the full system to 1e-5 of sum |H_rc p_c| (sums of up to
+    1152 products in another order: about sqrt(1152) 2^-24 = 2e-6). The
+    share keeps zeros left of the diagonal and the diagonal halved, and
+    every stored entry goes into both sums, as in the kernel."""
+    ld, pp, ctas = _half_deal(N)
+    Np = ld // 9
+    rng = np.random.default_rng(N)
+    A = rng.standard_normal((ld, ld))
+    H64 = torch.from_numpy(A + A.T)
+    pad = [f * Np + j for f in range(9) for j in range(N, Np)]
+    H64[pad, :] = 0.0
+    H64[:, pad] = 0.0
+    p64 = torch.from_numpy(rng.standard_normal(ld))
+    p64[pad] = 0.0
+    warp_of = (torch.arange(ld) // 128) % 8
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        H, p = H64.to(dt), p64.to(dt)
+        col = torch.zeros(16, ld, dtype=dt)
+        row = torch.zeros(8, ld, dtype=dt)
+        for t, (pairs, rows) in enumerate(ctas):
+            share = torch.full((pp * (ld + 4),), float("nan"), dtype=dt)
+            for r, base, _ in rows:
+                share[base + (r & ~3):base + ld] = H[r, r & ~3:]
+                share[base + (r & ~3):base + r] = 0.0
+                share[base + r] *= 0.5
+            for r, base, _ in rows:
+                h = torch.zeros(ld, dtype=dt)
+                h[r & ~3:] = share[base + (r & ~3):base + ld]
+                for w in range(8):
+                    row[w, r] = torch.sum(h * p * (warp_of == w))
+                col[t] += h * p[r]
+        y = torch.cat([col[:8] + row, col[8:]])
+        for o in (8, 4, 2, 1):
+            y = y + y[torch.arange(16) ^ o]
+        want = H64 @ p64
+        scale = (H64.abs() @ p64.abs()).clamp_min(1e-300)
+        assert bool(((y[0].double() - want).abs() <= tol * scale).all())
+        if dt == torch.float32:
+            mv = torch.mv(H, p).double()
+            assert bool(((y[0].double() - mv).abs() <= 2 * tol * scale).all())
 
 
 def test_k3_plan_rejects():
@@ -230,19 +375,21 @@ def test_k3_plan_rejects():
 
 
 def test_k3_launch_follows_plan(monkeypatch):
-    """_launch hands each system to the kernel k3_plan names; neither
-    launcher stands in for the other."""
+    """_launch hands each system to the kernel k3_plan names; no
+    launcher stands in for another."""
     seen = []
-    monkeypatch.setattr(cg_dense, "_launch_cluster",
-                        lambda Hz, b2, Lp, N, **kw: seen.append(
-                            ("cluster", N)))
+    for name in ("cluster", "half"):
+        monkeypatch.setattr(cg_dense, f"_launch_{name}",
+                            lambda Hz, b2, Lp, N, name=name, **kw:
+                            seen.append((name, N)))
     monkeypatch.setattr(cg_dense, "_launch_grid",
                         lambda Hz, b2, Lp, **kw: seen.append(("grid",)))
-    for N in (20, 49, 92, 93, 100):
-        cg_dense._launch(torch.zeros(1152, 1152), None, None, N,
-                         max_iters=1)
+    for N in (20, 49, 92, 93, 100, 126, 128, 129):
+        M = 9 * (128 if N <= 128 else 256)
+        cg_dense._launch(torch.zeros(M, M), None, None, N, max_iters=1)
     assert seen == [("cluster", 20), ("cluster", 49), ("cluster", 92),
-                    ("grid",), ("grid",)]
+                    ("half", 93), ("half", 100), ("half", 126),
+                    ("half", 128), ("grid",)]
 
 
 @pytest.mark.parametrize("q_tol,max_it", [(1e-1, 100), (float("-inf"), 25)])
