@@ -77,7 +77,7 @@ LADYBUG_CARD_FINAL_COST = 20066.38
 # the trafalgar-126 twin's final cost after 5 f32 LM iterations on the
 # card with the grid K3 (the tree before the half kernel; printed by
 # scripts/kernel_ab.py): held to rel 1e-4
-TRAFALGAR126_CARD_FINAL_COST = None
+TRAFALGAR126_CARD_FINAL_COST = 78704.86278591496
 # the CLI flag that takes K3 above its gate
 K3_ON = ("--pallas-cg", "on")
 
@@ -132,13 +132,15 @@ def short_name(name: str) -> str:
     return base.split("(")[0][:80]
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, expect: str = None):
     """(device time of one fn() call in ms, {kernel: launches per call})
     from a torch.profiler trace of `reps` calls: the summed duration of
     the CUDA kernels (and copies) in the trace, so host launch overhead
-    between calls does not count. The trace is the second of two profiler
-    steps of `reps` calls each (warm-up, then active): without the
-    warm-up step the trace loses the first launch of the window."""
+    between calls does not count; with `expect`, the mean duration of the
+    launches of the kernels whose names hold it (a trace may drop a
+    launch or two of a long kernel). The trace is the second of two
+    profiler steps of `reps` calls each (warm-up, then active): without
+    the warm-up step the trace loses the first launch of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -152,35 +154,45 @@ def device_ms(fn, reps: int = 20):
             prof.step()
     us = 0.0
     counts = {}
+    by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us += e.time_range.elapsed_us()
             n = short_name(e.name)
             counts[n] = counts.get(n, 0) + 1
-    return us / reps / 1e3, {k: v / reps for k, v in sorted(counts.items())}
+            by_name[n] = by_name.get(n, 0.0) + e.time_range.elapsed_us()
+    per_call = {k: v / reps for k, v in sorted(counts.items())}
+    if expect is not None:
+        hit = [n for n in counts if expect in n]
+        n_hit = sum(counts[n] for n in hit)
+        return (sum(by_name[n] for n in hit) / n_hit / 1e3 if n_hit
+                else 0.0), per_call
+    return us / reps / 1e3, per_call
 
 
 def both(key: str, fn, reps: int, warmup: int = 3,
          expect: str = None) -> dict:
-    """{key: device time of fn's kernels (profiler), key_per_call: time
-    per call of back-to-back calls (CUDA events), which includes the
-    host's launch overhead where it exceeds the device work,
-    key_trace: the kernels in the trace and their launches per call}.
-    A trace must hold the kernel `expect` names once per call (or, without
-    one, some kernel); a trace that does not is taken again, at most
-    twice, and the row fails if none does. key_traces counts the traces
-    taken."""
+    """{key: device time of fn's kernels (profiler; with `expect`, of one
+    launch of the kernel it names), key_per_call: time per call of
+    back-to-back calls (CUDA events), which includes the host's launch
+    overhead where it exceeds the device work, key_trace: the kernels in
+    the trace and their launches per call}. A trace must hold the kernel
+    `expect` names at least once per call but for a tenth of the calls
+    (or, without one, some kernel); a trace that does not is taken again,
+    at most twice, and the row fails if none does. key_traces counts the
+    traces taken."""
     per_call = cuda_ms(fn, reps, warmup)
     for tries in range(1, 4):
-        dev, names = device_ms(fn, min(reps, 20))
+        dev, names = device_ms(fn, min(reps, 20), expect)
         if expect is None:
             ok = dev > 0 and bool(names)
         else:
-            ok = sum(v for n, v in names.items() if expect in n) == 1.0
+            ok = dev > 0 and 0.9 <= sum(
+                v for n, v in names.items() if expect in n) <= 1.0
         if ok:
             break
-    check(ok, f"{key}: {expect or 'no kernel'} not once per call in the "
-              f"trace {names} ({tries} traces)")
+    check(ok, f"{key}: {expect or 'no kernel'} not about once per call in "
+              f"the trace {names} ({tries} traces)")
     return {key: dev, f"{key}_per_call": per_call, f"{key}_trace": names,
             f"{key}_traces": tries}
 
@@ -937,14 +949,15 @@ def main() -> int:
           f"({held / 2**20:.1f} MiB of it held by this script before "
           f"the solve)", flush=True)
 
-    # phase 4b: the trafalgar-257 twin with pallas_cg="on", f32, 2 LM
-    # iterations: K3 above the gate (Nc = 384), so the grid kernel
+    # phase 4b: the trafalgar-257 twin with pallas_cg="on", f32, 3 LM
+    # iterations (the third's K3 call crosses the residual reset): K3
+    # above the gate (Nc = 384), so the grid kernel
     with Recorder() as rec_on:
-        on = summarize_log(run_cli(traf, 2, "trafalgar_on_record", K3_ON),
+        on = summarize_log(run_cli(traf, 3, "trafalgar_on_record", K3_ON),
                            "trafalgar_on")
     on_k3 = check_k3_main_path(rec_on.k3_calls, "phase 4b")
     rec_on.k3_calls.clear()
-    print(f"[phase 4b] trafalgar-257 twin f32, pallas_cg on, 2 LM "
+    print(f"[phase 4b] trafalgar-257 twin f32, pallas_cg on, 3 LM "
           f"iterations: cost {on['initial_cost']:.6f} -> "
           f"{on['final_cost']:.6f}, CG iterations {on['cg_iters']}",
           flush=True)
@@ -959,7 +972,7 @@ def main() -> int:
             ("ladybug", lady, 20, "pcg_dense_cluster", ()),
             ("trafalgar126", mid, 5, "pcg_dense_half", ()),
             ("trafalgar", traf, 5, None, ()),
-            ("trafalgar_on", traf, 2, "pcg_dense_grid", K3_ON)):
+            ("trafalgar_on", traf, 3, "pcg_dense_grid", K3_ON)):
         log, n, ms = counted_run(bal, iters, path, extra)
         logs[path] = log
         paths[path] = (n, ms)

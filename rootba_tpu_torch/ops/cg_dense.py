@@ -98,13 +98,13 @@ def half_smem_bytes(N: int, pairs_per_cta: int) -> int:
     share of pairs_per_cta pairs of ld + 4, the vectors p, x, q, q', Hx
     (ld each), Lp's 45 lower planes (45 Np), the rows' places (4 words
     each), the column sums received by parity (2 x 16 x 2 pairs_per_cta),
-    the warps' row sums (8 x 2 pairs_per_cta), the pq partials and the
-    reduction scratch."""
+    the row sums (2 pairs_per_cta), the pq partials and the reduction
+    scratch."""
     Np = half_lanes(N)
     ld = 9 * Np
     return 48 + 4 * (pairs_per_cta * (ld + 4) + 5 * ld + 45 * Np
                      + 4 * 2 * pairs_per_cta
-                     + (2 * CLUSTER + 8) * 2 * pairs_per_cta
+                     + (2 * CLUSTER + 1) * 2 * pairs_per_cta
                      + 2 * CLUSTER * 8 + 6 * 8)
 
 

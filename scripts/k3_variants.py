@@ -28,6 +28,10 @@ build/k3_variants/. Of the full-row kernel (pcg_dense_cluster_kernel):
 and of the half kernel (pcg_dense_half_kernel):
 
   half              the kernel as it is
+  half_inline       round 1 of the product inlined at its two calls
+                    (twice the loop's code)
+  half_outline      round 2 and the 9x9 substitution out of line too
+  half_row1         round 1's rows one at a time, not three
   half_precond_off  no preconditioner in the loop (z = r)
 
 On the synthetic SPD systems of chip_smoke.spd_system (seed N) with
@@ -252,6 +256,24 @@ VARIANTS = {
 
 VARIANTS = {k: ("cluster", v) for k, v in VARIANTS.items()}
 VARIANTS["half"] = ("half", [])
+# round 1 of the product inlined at its two calls (twice the loop's code)
+VARIANTS["half_inline"] = ("half", [(
+    "__device__ __noinline__ void half_round1(",
+    "__device__ __forceinline__ void half_round1(")])
+# round 2 and the substitution out of line too (less code still)
+VARIANTS["half_outline"] = ("half", [(
+    "__device__ __forceinline__ void half_round2(",
+    "__device__ __noinline__ void half_round2("), (
+    "template <bool kPacked = false>\n__device__ __forceinline__ void solve9(",
+    "template <bool kPacked = false>\n__device__ __noinline__ void solve9(")])
+# round 1's rows one at a time (a third of its unrolled code)
+VARIANTS["half_row1"] = ("half", [(
+    "  for (int r0 = warp; r0 < nrows; r0 += 3 * kCWarps) {\n    float s[3];",
+    "  for (int r0 = warp; r0 < nrows; r0 += kCWarps) {\n    float s[3];"), (
+    "    for (int u = 0; u < 3; ++u) {\n      const int ri = r0 + u * kCWarps;\n      s[u] = 0.f;",
+    "    for (int u = 0; u < 3; ++u) {\n      const int ri = u == 0 ? r0 : nrows;\n      s[u] = 0.f;"), (
+    "      const int ri = r0 + u * kCWarps;\n      if (lane == 0 && ri < nrows)",
+    "      const int ri = u == 0 ? r0 : nrows;\n      if (lane == 0 && ri < nrows)")])
 VARIANTS["half_precond_off"] = ("half", [(HALF_SOLVE, """    rz = 0.f;
     if (own) {
 #pragma unroll

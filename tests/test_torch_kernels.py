@@ -319,11 +319,11 @@ def test_half_deal_tiles_the_triangle(N):
 @pytest.mark.parametrize("N", [49, 93, 126, 128])
 def test_half_product_model_matches_mv(N):
     """A plain model of the half kernel's product H p: each CTA's share
-    filled from H as its prologue copies it; per warp w (the columns of
-    the 128-column chunks k = w mod 8), the row sums over c >= r; per CTA,
-    the column sums over its rows r < c; each row's 16 column sums and 8
-    row sums added as the kernel adds them (lane l: column sum l plus
-    row sum l, then an xor butterfly over 16 lanes). In float64 this is
+    filled from H as its prologue copies it; each row's sum over its
+    stored entries; per CTA, the column sums over its rows; each row's 16
+    column sums and its row sum added as the kernel adds them (lane l:
+    column sum l, plus the row sum in lane 0, then an xor butterfly over
+    16 lanes). In float64 this is
     H p to 1e-12 (the deal covers each entry once); in float32 it is
     torch.mv of the full system to 1e-5 of sum |H_rc p_c| (sums of up to
     1152 products in another order: about sqrt(1152) 2^-24 = 2e-6). The
@@ -339,11 +339,10 @@ def test_half_product_model_matches_mv(N):
     H64[:, pad] = 0.0
     p64 = torch.from_numpy(rng.standard_normal(ld))
     p64[pad] = 0.0
-    warp_of = (torch.arange(ld) // 128) % 8
     for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         H, p = H64.to(dt), p64.to(dt)
         col = torch.zeros(16, ld, dtype=dt)
-        row = torch.zeros(8, ld, dtype=dt)
+        row = torch.zeros(ld, dtype=dt)
         for t, (pairs, rows) in enumerate(ctas):
             share = torch.full((pp * (ld + 4),), float("nan"), dtype=dt)
             for r, base, _ in rows:
@@ -353,10 +352,10 @@ def test_half_product_model_matches_mv(N):
             for r, base, _ in rows:
                 h = torch.zeros(ld, dtype=dt)
                 h[r & ~3:] = share[base + (r & ~3):base + ld]
-                for w in range(8):
-                    row[w, r] = torch.sum(h * p * (warp_of == w))
+                row[r] = torch.sum(h * p)
                 col[t] += h * p[r]
-        y = torch.cat([col[:8] + row, col[8:]])
+        y = col.clone()
+        y[0] += row
         for o in (8, 4, 2, 1):
             y = y + y[torch.arange(16) ^ o]
         want = H64 @ p64
