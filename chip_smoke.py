@@ -132,15 +132,23 @@ def short_name(name: str) -> str:
     return base.split("(")[0][:80]
 
 
-def device_ms(fn, reps: int = 20, expect: str = None):
+# host seconds kept free of launches at both edges of a profiler step:
+# the trace keeps a kernel only if its start and end, on the host clock,
+# fall inside the step, and the card's timestamps can sit a millisecond
+# off that clock (scripts/trace_edges.py counts what a trace keeps with
+# and without the margin)
+TRACE_MARGIN_S = 0.02
+
+
+def device_ms(fn, reps: int = 20, margin_s: float = TRACE_MARGIN_S):
     """(device time of one fn() call in ms, {kernel: launches per call})
     from a torch.profiler trace of `reps` calls: the summed duration of
-    the CUDA kernels (and copies) in the trace, so host launch overhead
-    between calls does not count; with `expect`, the mean duration of the
-    launches of the kernels whose names hold it (a trace may drop a
-    launch or two of a long kernel). The trace is the second of two
-    profiler steps of `reps` calls each (warm-up, then active): without
-    the warm-up step the trace loses the first launch of the window."""
+    the CUDA kernels (and copies) in the trace over reps, so host launch
+    overhead between calls does not count. The trace is the second of two
+    profiler steps of `reps` calls each (warm-up, then active), each call
+    window margin_s from the step's edges."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -148,51 +156,50 @@ def device_ms(fn, reps: int = 20, expect: str = None):
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(margin_s)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(margin_s)
             prof.step()
     us = 0.0
     counts = {}
-    by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us += e.time_range.elapsed_us()
             n = short_name(e.name)
             counts[n] = counts.get(n, 0) + 1
-            by_name[n] = by_name.get(n, 0.0) + e.time_range.elapsed_us()
-    per_call = {k: v / reps for k, v in sorted(counts.items())}
-    if expect is not None:
-        hit = [n for n in counts if expect in n]
-        n_hit = sum(counts[n] for n in hit)
-        return (sum(by_name[n] for n in hit) / n_hit / 1e3 if n_hit
-                else 0.0), per_call
-    return us / reps / 1e3, per_call
+    return us / reps / 1e3, {k: v / reps for k, v in sorted(counts.items())}
+
+
+def traced_ms(fn, expect: str = None, reps: int = 20, tries: int = 5):
+    """device_ms of fn from the first of at most `tries` traces that
+    holds the kernel `expect` names exactly once per call (without
+    `expect`: some kernel): (ms, {kernel: launches per call}, traces
+    taken), ms None where no trace did."""
+    for n in range(1, tries + 1):
+        ms, names = device_ms(fn, reps)
+        if expect is None:
+            ok = ms > 0 and bool(names)
+        else:
+            ok = sum(v for k, v in names.items() if expect in k) == 1.0
+        if ok:
+            return ms, names, n
+    return None, names, tries
 
 
 def both(key: str, fn, reps: int, warmup: int = 3,
          expect: str = None) -> dict:
-    """{key: device time of fn's kernels (profiler; with `expect`, of one
-    launch of the kernel it names), key_per_call: time per call of
-    back-to-back calls (CUDA events), which includes the host's launch
-    overhead where it exceeds the device work, key_trace: the kernels in
-    the trace and their launches per call}. A trace must hold the kernel
-    `expect` names at least once per call but for a tenth of the calls
-    (or, without one, some kernel); a trace that does not is taken again,
-    at most twice, and the row fails if none does. key_traces counts the
-    traces taken."""
+    """{key: device time of fn's kernels (traced_ms), key_per_call: time
+    per call of back-to-back calls (CUDA events), which includes the
+    host's launch overhead where it exceeds the device work, key_trace:
+    the kernels in the trace and their launches per call, key_traces: the
+    traces taken}. The row fails unless a trace holds the kernel `expect`
+    names once per call."""
     per_call = cuda_ms(fn, reps, warmup)
-    for tries in range(1, 4):
-        dev, names = device_ms(fn, min(reps, 20), expect)
-        if expect is None:
-            ok = dev > 0 and bool(names)
-        else:
-            ok = dev > 0 and 0.9 <= sum(
-                v for n, v in names.items() if expect in n) <= 1.0
-        if ok:
-            break
-    check(ok, f"{key}: {expect or 'no kernel'} not about once per call in "
-              f"the trace {names} ({tries} traces)")
+    dev, names, tries = traced_ms(fn, expect, min(reps, 20))
+    check(dev is not None, f"{key}: {expect or 'no kernel'} not once per "
+                           f"call in the trace {names} ({tries} traces)")
     return {key: dev, f"{key}_per_call": per_call, f"{key}_trace": names,
             f"{key}_traces": tries}
 
@@ -292,11 +299,11 @@ def check_k2(dev, errs: dict) -> None:
 
 
 # K3 test systems (N, Nc), each from seed N: on both sides of k3_plan's
-# switches between the full-row cluster kernel (N <= 92), the half
+# switches between the full-row cluster kernel (N <= 96), the half
 # kernel (N <= 128) and the grid kernel, trafalgar-126's size, and one
-# unpadded system
-K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (126, 128),
-              (128, 128), (129, 256), (49, 49))
+# unpadded system (the half kernel also takes every N <= 96 here)
+K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (96, 128),
+              (97, 128), (126, 128), (128, 128), (129, 256), (49, 49))
 # A zeta test with q_tol below 2^-24 stops a float32 CG where q1 - q0
 # falls to about one ulp of q1, so two correct implementations may stop
 # one iteration apart where q's exact decrease is within float32's
@@ -376,10 +383,10 @@ def compare_k3(name: str, launch, Hz, b2, Lp, N: int, kw: dict,
 
 
 def check_k3_plan() -> None:
-    """k3_plan (ops/cg_dense.py) against the capacity check of the
-    cluster kernel's launch (rb_pcg_dense_cluster_plan in
+    """k3_plan (ops/cg_dense.py) against the capacity checks of the
+    cluster kernels' launches (rb_pcg_dense_cluster_plan in
     csrc/cg_dense.cu) at every N up to MAX_NC: the same choice, and for
-    the cluster kernel the same rows per CTA and shared memory."""
+    a cluster kernel the same rows per CTA and shared memory."""
     import ctypes
 
     from rootba_tpu_torch.ops import cg_dense, kernels
@@ -390,7 +397,8 @@ def check_k3_plan() -> None:
     for N in range(1, cg_dense.MAX_NC + 1):
         code = lib.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
                                              ctypes.addressof(smem))
-        kernel = {0: "grid", 1: "cluster", 2: "half"}.get(code, str(code))
+        kernel = (cg_dense.PLAN_KERNELS[code]
+                  if 0 <= code < len(cg_dense.PLAN_KERNELS) else str(code))
         plan = cg_dense.k3_plan(N, N)
         check(plan.kernel == kernel and (
             kernel == "grid" or (plan.rows_per_cta, plan.smem_bytes)
@@ -404,8 +412,9 @@ def check_k3_plan() -> None:
 
 
 def check_k3(dev, errs: dict) -> None:
-    """Both K3 kernels against the twin: the cluster kernel wherever
-    k3_plan gives it, the grid kernel on every system, with the zeta
+    """The K3 kernels against the twin: the full-row cluster kernel
+    wherever k3_plan gives it, the half kernel wherever it fits, the grid
+    kernel on every system, with the zeta
     test at both ends and two runs that cross the exact residual reset
     r = b - Hx (every 3rd iteration, and a fixed 25 iterations with the
     main path's period 10); then the wrapper pcg_dense on the card
@@ -426,12 +435,12 @@ def check_k3(dev, errs: dict) -> None:
         b2[:, :N] = bt.T
         plan = cg_dense.k3_plan(N, Nc)
         launchers = {"pcg_dense_grid": cg_dense._launch_grid}
-        if plan.kernel == "cluster":
-            launchers["pcg_dense_cluster"] = (
-                lambda *a, **k: cg_dense._launch_cluster(*a, N, **k))
-        if cg_dense.half_fits(N):
-            launchers["pcg_dense_half"] = (
-                lambda *a, **k: cg_dense._launch_half(*a, N, **k))
+        for kernel in ("cluster", "half"):
+            if kernel == plan.kernel or (kernel == "half"
+                                         and cg_dense.half_fits(N)):
+                launchers[f"pcg_dense_{kernel}"] = (
+                    lambda *a, kernel=kernel, **k:
+                    cg_dense._launch_in_cluster(kernel, *a, N, **k))
         for q_tol, max_it, period in ((1e-1, 100, 10), (1e-8, 200, 10),
                                       (1e-8, 200, 3),
                                       (float("-inf"), 25, 10)):
@@ -714,7 +723,10 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
     trace of the card: (its ba_log, {kernel: launches}, {kernel: device
     ms summed over the solve}). Each kernel's launches in the trace must
     equal its wrapper's count. The trace's warm-up step (one small
-    kernel) keeps it from losing the solve's first launch."""
+    kernel) and TRACE_MARGIN_S at the active step's edges keep it from
+    losing the solve's first or last launch."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -725,11 +737,14 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
                                    repeat=1)) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         prof.step()
+        time.sleep(TRACE_MARGIN_S)
         kernels.reset_launches()
         log = run_cli(bal_path, iters, tag, extra)
         launches = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
         prof.step()
     by_name = {v: k for k, v in KERNEL_NAMES.items()}
     us = dict.fromkeys(KERNEL_NAMES, 0.0)

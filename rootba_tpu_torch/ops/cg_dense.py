@@ -52,10 +52,13 @@ MAX_ROW_CHUNKS = 224
 MAX_ROWS_PER_CTA = 80
 # the half kernel: camera lanes (kHLaneWarps x 32)
 HALF_MAX_LANES = 128
-# the 45 lower entries of a 9x9 factor that the substitution reads, in
-# the half kernel's packed order (plane45 in csrc/cg_dense.cu: row a's
-# entries after rows 0..a-1's), as planes of the 81-row layout
-PLANES45 = [a * 9 + c for a in range(9) for c in range(a + 1)]
+# ... and rows of a CTA's triangle share (kHRows x kCWarps)
+HALF_MAX_ROWS_PER_CTA = 72
+# rb_pcg_dense_cluster_plan's answer -> the kernel k3_plan names
+PLAN_KERNELS = ("grid", "cluster", "half")
+# each kernel's entry in csrc/cg_dense.cu
+ENTRIES = {"grid": "rb_pcg_dense_f32", "cluster": "rb_pcg_dense_cluster_f32",
+           "half": "rb_pcg_dense_half_f32"}
 
 
 class K3Plan(NamedTuple):
@@ -70,11 +73,11 @@ def cluster_smem_bytes(N: int, rows_per_cta: int) -> int:
     (csrc/cg_dense.cu, cluster_smem_bytes): 32 bytes of mbarriers, then
     floats -- its slab of rows_per_cta real rows and the vectors p, x,
     q, q', Hx, each of row length ld = 9 * Np (Np = N rounded up to 4),
-    Lp's lanes (81 Np), the pq partials (2 x 16 CTAs x 8 warps) and the
-    reduction scratch (2 x 3 x 8)."""
+    Lp's 45 lower planes (45 Np), the pq partials (2 x 16 CTAs x 8 warps)
+    and the reduction scratch (2 x 3 x 8)."""
     Np = (N + 3) // 4 * 4
     ld = 9 * Np
-    return 32 + 4 * (rows_per_cta * ld + 5 * ld + 81 * Np
+    return 32 + 4 * (rows_per_cta * ld + 5 * ld + 45 * Np
                      + 2 * CLUSTER * 8 + 6 * 8)
 
 
@@ -98,22 +101,24 @@ def half_smem_bytes(N: int, pairs_per_cta: int) -> int:
     share of pairs_per_cta pairs of ld + 4, the vectors p, x, q, q', Hx
     (ld each), Lp's 45 lower planes (45 Np), the rows' places (4 words
     each), the column sums received by parity (2 x 16 x 2 pairs_per_cta),
-    the row sums (2 pairs_per_cta), the pq partials and the reduction
-    scratch."""
+    the row sums (2 pairs_per_cta), the pq partials, the reduction
+    scratch, 4 zeros and a buffer of round 1's column sums (ld)."""
     Np = half_lanes(N)
     ld = 9 * Np
-    return 48 + 4 * (pairs_per_cta * (ld + 4) + 5 * ld + 45 * Np
+    return 48 + 4 * (pairs_per_cta * (ld + 4) + 6 * ld + 45 * Np
                      + 4 * 2 * pairs_per_cta
                      + (2 * CLUSTER + 1) * 2 * pairs_per_cta
-                     + 2 * CLUSTER * 8 + 6 * 8)
+                     + 2 * CLUSTER * 8 + 6 * 8 + 4)
 
 
 def half_fits(N: int) -> bool:
     """Whether the half kernel takes N cameras (half_plan in
-    csrc/cg_dense.cu): a lane per thread of its lane warps, and its
-    shared memory within 227 KB."""
-    return (1 <= N <= HALF_MAX_LANES
-            and half_smem_bytes(N, half_pairs_per_cta(N)) <= SMEM_LIMIT)
+    csrc/cg_dense.cu): a lane per thread of its lane warps, at most
+    HALF_MAX_ROWS_PER_CTA rows of the share per CTA, and its shared
+    memory within 227 KB."""
+    pairs = half_pairs_per_cta(N)
+    return (1 <= N <= HALF_MAX_LANES and 2 * pairs <= HALF_MAX_ROWS_PER_CTA
+            and half_smem_bytes(N, pairs) <= SMEM_LIMIT)
 
 
 def k3_plan(N: int, Nc: int) -> K3Plan:
@@ -147,13 +152,10 @@ def chol_planes(chol: torch.Tensor, Nc: int) -> torch.Tensor:
     return torch.cat([chol.reshape(N, 81).T, pad], dim=1).contiguous()
 
 
-def _solve_planar(Lp: torch.Tensor, r2: torch.Tensor,
-                  packed: bool = False) -> torch.Tensor:
-    """(L L')^-1 r for planar factors Lp [81, Nc] and r2 [9, Nc]; with
-    `packed`, Lp holds only the 45 planes PLANES45 (Lp[PLANES45]), as the
-    half kernel keeps them."""
+def _solve_planar(Lp: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """(L L')^-1 r for planar factors Lp [81, Nc] and r2 [9, Nc]."""
     def at(a, c):
-        return Lp[a * (a + 1) // 2 + c] if packed else Lp[a * D + c]
+        return Lp[a * D + c]
 
     y = [None] * D
     for i in range(D):
@@ -247,23 +249,13 @@ def _launch_in_cluster(kernel, Hz, b2, Lp, N, *, min_iters, max_iters,
     lib = kernels.load("cg_dense")
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
-    entry = getattr(lib, f"rb_pcg_dense_{kernel}_f32")
+    entry = getattr(lib, ENTRIES[kernel])
     kernels.check(entry(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
         stats.data_ptr(), N, Nc, max_iters, min_iters, q_tol, r_tol,
         reset_period, kernels.stream_ptr(Hz)), f"pcg_dense_{kernel}")
     kernels.LAUNCHES[f"pcg_dense_{kernel}"] += 1
     return x2, stats
-
-
-def _launch_cluster(Hz, b2, Lp, N, **kw):
-    """The full-row cluster kernel."""
-    return _launch_in_cluster("cluster", Hz, b2, Lp, N, **kw)
-
-
-def _launch_half(Hz, b2, Lp, N, **kw):
-    """The half (upper-triangle) cluster kernel."""
-    return _launch_in_cluster("half", Hz, b2, Lp, N, **kw)
 
 
 def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
@@ -278,7 +270,7 @@ def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
     work = torch.empty(3 * M, dtype=torch.float32, device=Hz.device)
-    kernels.check(lib.rb_pcg_dense_f32(
+    kernels.check(getattr(lib, ENTRIES["grid"])(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
         stats.data_ptr(), work.data_ptr(), M, Nc, max_iters, min_iters,
         q_tol, r_tol, reset_period, kernels.stream_ptr(Hz)),
@@ -290,11 +282,9 @@ def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
 def _launch(Hz, b2, Lp, N, **kw):
     """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes."""
     plan = k3_plan(N, Hz.shape[0] // D)
-    if plan.kernel == "cluster":
-        return _launch_cluster(Hz, b2, Lp, N, **kw)
-    if plan.kernel == "half":
-        return _launch_half(Hz, b2, Lp, N, **kw)
-    return _launch_grid(Hz, b2, Lp, **kw)
+    if plan.kernel == "grid":
+        return _launch_grid(Hz, b2, Lp, **kw)
+    return _launch_in_cluster(plan.kernel, Hz, b2, Lp, N, **kw)
 
 
 def pcg_dense(Hz: torch.Tensor, chol: torch.Tensor, b: torch.Tensor, *,

@@ -8,7 +8,7 @@
    on 2^33 random pairs with exponents in [-70, 70] (inside and outside
    the fast path's range). The check kernel includes cg_dense.cu itself.
 2. Where float32 CG stops at q_tol 1e-8: for the phase-2 system sizes of
-   chip_smoke.py (N = 12 to 129, the half kernel's 93-128 among them) and
+   chip_smoke.py (N = 12 to 129, the half kernel's 97-128 among them) and
    seeds N, N + 1000, ..., the iteration counts of the plain twin and
    of each K3 kernel that takes the system (reset every 10 and every 3);
    where they differ, the exact (float64) zeta at the earlier stop beside
@@ -128,8 +128,8 @@ def main() -> int:
                 its = [int(cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)[1][0]),
                        int(cg_dense._launch_grid(Hz, b2, Lp, **kw)[1][0])]
                 for name in names[1:]:
-                    launch = getattr(cg_dense, f"_launch_{name}")
-                    its.append(int(launch(Hz, b2, Lp, N, **kw)[1][0]))
+                    its.append(int(cg_dense._launch_in_cluster(
+                        name, Hz, b2, Lp, N, **kw)[1][0]))
                 counts.append(its)
                 if len(set(its)) > 1:
                     m = min(its)
@@ -162,7 +162,8 @@ def main() -> int:
         kw = dict(min_iters=0, max_iters=k, q_tol=float("-inf"), r_tol=-1.0,
                   reset_period=3)
         xs = {"twin": cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)[0],
-              "cluster": cg_dense._launch_cluster(Hz, b2, Lp, N, **kw)[0]}
+              "cluster": cg_dense._launch_in_cluster("cluster", Hz, b2, Lp,
+                                                     N, **kw)[0]}
         parts = []
         for name, x in xs.items():
             x = x.double().reshape(-1)

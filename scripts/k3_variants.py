@@ -2,7 +2,7 @@
 """Design variants of K3's cluster kernels against the kernels as they
 are, on one card.
 
-    python3 scripts/k3_variants.py [OUT.json]
+    python3 scripts/k3_variants.py [OUT.json [NAME ...]]
 
 Each variant is csrc/cg_dense.cu with one text edit, built by nvcc into
 build/k3_variants/. Of the full-row kernel (pcg_dense_cluster_kernel):
@@ -30,22 +30,31 @@ and of the half kernel (pcg_dense_half_kernel):
   half              the kernel as it is
   half_inline       round 1 of the product inlined at its two calls
                     (twice the loop's code)
+  half_pred         round 1's loads predicated into zeroed registers,
+                    not reading a block of shared zeros
+  half_skip         round 1's row groups branch past the chunks their
+                    first row does not reach, not computing zeros
+  half_g1, _g5, _g9 round 1 by groups of 1, 5 or 9 rows, not 3
+  half_comb2, _comb3 round 1's column sums in two or three chains
+                    of the warps (four or three stages), not four
   half_outline      round 2 and the 9x9 substitution out of line too
-  half_row1         round 1's rows one at a time, not three
   half_precond_off  no preconditioner in the loop (z = r)
 
 On the synthetic SPD systems of chip_smoke.spd_system (seed N) with
 N = 12, 49 and 92 cameras (the full-row kernel) and 49, 92 and 126 (the
-half kernel) on 128 lanes: device time (chip_smoke.device_ms,
-the kernel once per call in the trace) at 0 and at 20 fixed CG iterations
+half kernel) on 128 lanes: device time (chip_smoke.traced_ms, the
+kernel once per call in the trace) at 0 and at 20 fixed CG iterations
 (q_tol -inf, reset every 10). Per iteration: (t20 - t0) / 20; fixed cost
 (launch, prologue, epilogue): t0. The variants run in turns, forward and
 then backward, and each time is the mean of the two (of those whose
-trace holds the kernel once per call, in at most three traces each). x
+trace holds the kernel once per call, in at most five traces each). x
 after 20 iterations is held against the twin at rtol 2e-4 / atol 2e-5,
-except without a preconditioner (another algorithm). ptxas's register count of the kernel is
-printed for each variant. Prints one JSON object, and writes it to
-OUT.json when given.
+except without a preconditioner (another algorithm). ptxas's register
+count of the kernel is printed for each variant. An edit applies to the
+text of its kernel's own section of the source where it is found there,
+else to the whole source; either way it must match once. Prints one
+JSON object, and writes it to OUT.json when given. With NAMEs, only
+those variants run.
 """
 
 from __future__ import annotations
@@ -81,7 +90,7 @@ __device__ void precond9(const float* Ls, int Np, int N, const float* rs,
     const bool on = g < 3 && j < N;
     const int c = on ? lane - 9 * g : 0;
     const float* L = Ls + (on ? j : 0);
-    const float dc = L[(c * D + c) * Np];
+    const float dc = L[plane45(c, c) * Np];
     const float ic = fdiv(1.f, dc);
     float s = on ? rs[c * Np + j] : 0.f;
     float y = 0.f;
@@ -89,7 +98,7 @@ __device__ void precond9(const float* Ls, int Np, int N, const float* rs,
     for (int i = 0; i < D; ++i) {
       const float yi = __shfl_sync(kFull, quot_fast(s, dc, ic), base + i);
       if (c == i) y = yi;
-      if (c > i) s = __fsub_rn(s, __fmul_rn(L[(c * D + i) * Np], yi));
+      if (c > i) s = __fsub_rn(s, __fmul_rn(L[plane45(c, i) * Np], yi));
     }
     s = y;
     float z = 0.f;
@@ -97,7 +106,7 @@ __device__ void precond9(const float* Ls, int Np, int N, const float* rs,
     for (int i = D - 1; i >= 0; --i) {
       const float zi = __shfl_sync(kFull, quot_fast(s, dc, ic), base + i);
       if (c == i) z = zi;
-      if (c < i) s = __fsub_rn(s, __fmul_rn(L[(i * D + c) * Np], zi));
+      if (c < i) s = __fsub_rn(s, __fmul_rn(L[plane45(i, c) * Np], zi));
     }
     if (on) zs[c * Np + j] = z;
   }
@@ -149,10 +158,8 @@ GEMV_SYNC = "    __syncthreads();\n\n    gemv_cluster(Hs, ps,"
 Q_WAIT = ("    mbar_wait(qbar + pb, static_cast<uint32_t>(((i - 1) >> 1) "
           "& 1));\n")
 
-HALF_SOLVE = """    rz = 0.f;
-    if (own) {
-      solve9<true>(L, Np, dv, iv, rv, zv);
-"""
+# where the half kernel's section of the source starts
+HALF_SECTION = "// the symmetric-half cluster kernel"
 
 # name -> (the kernel it edits, its edits)
 VARIANTS = {
@@ -264,17 +271,47 @@ VARIANTS["half_inline"] = ("half", [(
 VARIANTS["half_outline"] = ("half", [(
     "__device__ __forceinline__ void half_round2(",
     "__device__ __noinline__ void half_round2("), (
-    "template <bool kPacked = false>\n__device__ __forceinline__ void solve9(",
-    "template <bool kPacked = false>\n__device__ __noinline__ void solve9(")])
-# round 1's rows one at a time (a third of its unrolled code)
-VARIANTS["half_row1"] = ("half", [(
-    "  for (int r0 = warp; r0 < nrows; r0 += 3 * kCWarps) {\n    float s[3];",
-    "  for (int r0 = warp; r0 < nrows; r0 += kCWarps) {\n    float s[3];"), (
-    "    for (int u = 0; u < 3; ++u) {\n      const int ri = r0 + u * kCWarps;\n      s[u] = 0.f;",
-    "    for (int u = 0; u < 3; ++u) {\n      const int ri = u == 0 ? r0 : nrows;\n      s[u] = 0.f;"), (
-    "      const int ri = r0 + u * kCWarps;\n      if (lane == 0 && ri < nrows)",
-    "      const int ri = u == 0 ? r0 : nrows;\n      if (lane == 0 && ri < nrows)")])
-VARIANTS["half_precond_off"] = ("half", [(HALF_SOLVE, """    rz = 0.f;
+    "__device__ __forceinline__ void solve9(",
+    "__device__ __noinline__ void solve9(")])
+# round 1's loads pipelined by groups of 1, 5 or 9 rows, not 3 (9: a
+# chunk's loads of every row go out together once its products are done)
+for g in (1, 5, 9):
+    VARIANTS[f"half_g{g}"] = ("half", [(
+        "constexpr int kHGroup = 3;", f"constexpr int kHGroup = {g};")])
+# round 1's loads predicated (each lane's registers zeroed, then a
+# predicated ld.shared), not the shared zeros
+VARIANTS["half_pred"] = ("half", [(
+    """  const float* zm = z - 128 * m;  // z, seen from chunk m
+#pragma unroll
+  for (int k = k0; k < k0 + kHGroup && k < kHRows; ++k) {
+    const float* p = in && c4 >= r4[k] ? row[k] : zm;
+    h[k] = *reinterpret_cast<const float4*>(p + 128 * m);
+  }""", r"""#pragma unroll
+  for (int k = k0; k < k0 + kHGroup && k < kHRows; ++k) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    asm volatile(
+        "{\n .reg .pred q;\n setp.ne.b32 q, %4, 0;\n"
+        " @q ld.shared.v4.f32 {%0, %1, %2, %3}, [%5];\n}\n"
+        : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
+        : "r"(static_cast<int>(in && c4 >= r4[k])),
+          "r"(smem_u32(row[k] + 128 * m)));
+    h[k] = v;
+  }""")])
+# round 1's groups skip the chunks their first row does not reach (a
+# uniform branch per group and chunk), not computing zeros
+VARIANTS["half_skip"] = ("half", [(
+    "    r1_loads(h, row, r4, k0, 0, 4 * lane < ld, sm.zero);",
+    "    if (r4[k0] < 128) r1_loads(h, row, r4, k0, 0, 4 * lane < ld, sm.zero);"), (
+    "      r1_products(h, pcm, vr, s, acc[m], k0);",
+    "      if (r4[k0] < 128 * m + 128) r1_products(h, pcm, vr, s, acc[m], k0);"), (
+    "        r1_loads(h, row, r4, k0, m + 1, inn, sm.zero);",
+    "        if (r4[k0] < 128 * m + 256) r1_loads(h, row, r4, k0, m + 1, inn, sm.zero);")])
+# the warps' column sums in two or three chains (four or three stages),
+# not four (two stages)
+for c in (2, 3):
+    VARIANTS[f"half_comb{c}"] = ("half", [(
+        "constexpr int kHChains = 4;", f"constexpr int kHChains = {c};")])
+VARIANTS["half_precond_off"] = ("half", [(LOOP_SOLVE, """    rz = 0.f;
     if (own) {
 #pragma unroll
       for (int k = 0; k < D; ++k) zv[k] = rv[k];
@@ -283,14 +320,20 @@ VARIANTS["half_precond_off"] = ("half", [(HALF_SOLVE, """    rz = 0.f;
 
 def variant_source(name: str) -> str:
     src = (ROOT / "rootba_tpu_torch" / "csrc" / "cg_dense.cu").read_text()
-    for old, new in VARIANTS[name][1]:
+    kernel, edits = VARIANTS[name]
+    for old, new in edits:
         if old == "SLAB":
             a, b = src.index(SLAB_START), src.index(SLAB_END)
             src = src[:a] + new + src[b:]
             continue
-        cs.check(src.count(old) == 1, f"{name}: edit target not unique: "
-                                      f"{old[:60]!r}")
-        src = src.replace(old, new)
+        # the kernel's own section: the half kernel's from HALF_SECTION
+        cut = src.index(HALF_SECTION)
+        a, b = (cut, len(src)) if kernel == "half" else (0, cut)
+        if old not in src[a:b]:
+            a, b = 0, len(src)
+        cs.check(src[a:b].count(old) == 1, f"{name}: edit target not "
+                                           f"unique: {old[:60]!r}")
+        src = src[:a] + src[a:b].replace(old, new) + src[b:]
     return src
 
 
@@ -334,6 +377,12 @@ def main() -> int:
     from rootba_tpu_torch.ops.block9 import chol9
 
     out_path = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else None
+    if len(sys.argv) > 2:
+        unknown = set(sys.argv[2:]) - set(VARIANTS)
+        cs.check(not unknown, f"unknown variants {sorted(unknown)}")
+        for name in list(VARIANTS):
+            if name not in sys.argv[2:]:
+                del VARIANTS[name]
     libs = build(kernels)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -375,18 +424,17 @@ def main() -> int:
         times = {k: {0: [], ITERS: []} for k in names}
         for order in (names, names[::-1]):
             for name in order:
+                kname = f"pcg_dense_{VARIANTS[name][0]}_kernel"
                 for iters in (0, ITERS):
-                    # a trace that lost launches is taken again, as in
-                    # chip_smoke.both; after three, the sample is missing
-                    for _ in range(3):
-                        ms, seen = cs.device_ms(lambda: launch(name, iters))
-                        kname = f"pcg_dense_{VARIANTS[name][0]}_kernel"
-                        if seen.get(kname) == 1.0:
-                            times[name][iters].append(ms)
-                            break
+                    # without a trace that holds the kernel once per call
+                    # (five taken), the sample is missing
+                    ms, seen, _ = cs.traced_ms(lambda: launch(name, iters),
+                                               kname)
+                    if ms is not None:
+                        times[name][iters].append(ms)
                     else:
                         print(f"N={N}: {name} at {iters} iterations: the "
-                              f"kernel not once per call in three traces "
+                              f"kernel not once per call in five traces "
                               f"{seen}", flush=True)
         rows = {}
         for name in names:

@@ -10,8 +10,8 @@ the main path's inputs with chip_smoke.py's Recorder -- the K3 call
 with the most CG iterations of the ladybug-49 twin (20 LM iterations)
 and of the trafalgar-126 twin (5), and the trafalgar-257 twin's largest
 K1 call -- and times the old and this tree's kernels on them in turns
-(old, new, new, old) by profiler device time (chip_smoke.device_ms, one
-launch per call in the trace). Each tree's K3 is the kernel its own
+(old, new, new, old) by profiler device time (chip_smoke.traced_ms: the
+kernel once per call in the trace). Each tree's K3 is the kernel its own
 capacity check (rb_pcg_dense_cluster_plan) chooses. K1 runs in f32 (the
 traced paths' precision) and f64. It also runs the trafalgar-126 twin's
 5 f32 LM iterations through the old tree's CLI, in a process of its
@@ -52,22 +52,15 @@ cs.WORK.mkdir(parents=True, exist_ok=True)
 d = cs.run_cli(cs.write_twin("trafalgar126"), 5, "ab_trafalgar126_old")
 print(json.dumps(d["cost"]))
 """
-# a capacity check's answer -> (entry, kernel name in a trace)
-K3_ENTRIES = {0: ("rb_pcg_dense_f32", "pcg_dense_kernel"),
-              1: ("rb_pcg_dense_cluster_f32", "pcg_dense_cluster_kernel"),
-              2: ("rb_pcg_dense_half_f32", "pcg_dense_half_kernel")}
 
 
 def timed(name: str, fn, expect: str, reps: int = 20) -> float:
-    """Device ms of one launch of the kernel `expect` names in fn, from a
-    trace that holds it at least 0.9 times per call (at most three)."""
-    for _ in range(3):
-        ms, names = cs.device_ms(fn, reps, expect)
-        if ms > 0 and 0.9 <= sum(v for n, v in names.items()
-                                 if expect in n) <= 1.0:
-            return ms
-    cs.check(False, f"{name}: {expect} not about once per call in three "
-                    f"traces, the last {names}")
+    """Device ms of one fn() call, from a trace that holds the kernel
+    `expect` names once per call (chip_smoke.traced_ms)."""
+    ms, names, tries = cs.traced_ms(fn, expect, reps)
+    cs.check(ms is not None, f"{name}: {expect} not once per call in "
+                             f"{tries} traces, the last {names}")
+    return ms
 
 
 def k3_ab(old_cg, call, order, stream) -> dict:
@@ -88,11 +81,12 @@ def k3_ab(old_cg, call, order, stream) -> dict:
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
     work = torch.empty(3 * Mz, dtype=torch.float32, device=Hz.device)
     rows, smem = ctypes.c_int(), ctypes.c_longlong()
-    code = old_cg.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
-                                            ctypes.addressof(smem))
-    entry, old_name = K3_ENTRIES[code]
-    args = (Mz, Mz // 9) if code == 0 else (N, Mz // 9)
-    head = ((work.data_ptr(),) if code == 0 else ())
+    old_kernel = cg_dense.PLAN_KERNELS[old_cg.rb_pcg_dense_cluster_plan(
+        N, ctypes.addressof(rows), ctypes.addressof(smem))]
+    entry = cg_dense.ENTRIES[old_kernel]
+    grid = old_kernel == "grid"
+    args = (Mz, Mz // 9) if grid else (N, Mz // 9)
+    head = (work.data_ptr(),) if grid else ()
 
     def k3_old():
         cs.check(getattr(old_cg, entry)(
@@ -104,9 +98,8 @@ def k3_ab(old_cg, call, order, stream) -> dict:
 
     fns = {"old": k3_old,
            "new": lambda: cg_dense._launch(Hz, b2, Lp, N, **ckw)}
-    names = {"old": old_name,
-             "new": cs.KERNEL_NAMES[
-                 f"pcg_dense_{cg_dense.k3_plan(N, Mz // 9).kernel}"]}
+    names = {k: cs.KERNEL_NAMES[f"pcg_dense_{kernel}"] for k, kernel in (
+        ("old", old_kernel), ("new", cg_dense.k3_plan(N, Mz // 9).kernel))}
     outs = {k: tuple(t.clone() for t in fns[k]()) for k in fns}
     return dict(shape=f"M={Mz} N={N}", kernels=names,
                 cg_iters={k: int(o[1][0]) for k, o in outs.items()},

@@ -194,8 +194,10 @@ def test_pcg_dense_zero_rhs_and_padding():
     (29, 128, "cluster", 17),
     (49, 128, "cluster", 28),    # ladybug-49: 441 real rows of 1152
     (49, 49, "cluster", 28),     # unpadded
-    (92, 128, "cluster", 52),    # the largest slab a CTA holds
-    (93, 128, "half", 56),
+    (92, 128, "cluster", 52),
+    (93, 128, "cluster", 53),
+    (96, 128, "cluster", 54),    # the largest slab a CTA holds
+    (97, 128, "half", 64),
     (100, 128, "half", 64),
     (126, 128, "half", 72),      # trafalgar-126
     (128, 128, "half", 72),      # the K3 gate's largest system
@@ -208,7 +210,7 @@ def test_k3_plan(N, Nc, kernel, rows):
     CTA's slab of ceil(9N / 16) real rows, its vectors and Lp fit in 227
     KB of shared memory; then the half kernel (16 CTAs, 2 pairs_per
     row slots of the upper triangle each) up to 128 cameras; else the
-    grid kernel. One camera more moves N = 0, 92 and 128 to another
+    grid kernel. One camera more moves N = 0, 96 and 128 to another
     kernel. (The card test holds k3_plan equal to the kernel's own
     capacity checks.)"""
     plan = cg_dense.k3_plan(N, Nc)
@@ -229,24 +231,44 @@ def test_k3_plan(N, Nc, kernel, rows):
         assert not full_fits and not cg_dense.half_fits(N)
     if N + 1 <= Nc:
         nxt = cg_dense.k3_plan(N + 1, Nc)
-        assert (nxt.kernel != kernel) == (N in (0, 92, 128))
+        assert (nxt.kernel != kernel) == (N in (0, 96, 128))
 
 
 def test_packed_factor_solves_like_planes():
-    """The half kernel keeps only the 45 lower planes of the factor
-    (PLANES45, csrc/cg_dense.cu plane45); the substitution on them is the
-    one on the 81 planes, bit for bit (the same products and
-    differences in the same order)."""
+    """The cluster kernels keep only the 45 lower planes of the factor,
+    row a's entries after rows 0..a-1's (csrc/cg_dense.cu plane45 and
+    copy_factor_b): a plain model of their substitution on those planes
+    -- the twin's products and differences in the twin's order -- is the
+    twin's on the 81 planes, bit for bit, and reads every packed plane."""
     rng = np.random.default_rng(4)
     N = 37
     A = rng.standard_normal((N, 9, 12)).astype(np.float32)
     chol = np.linalg.cholesky(A @ A.transpose(0, 2, 1)).astype(np.float32)
     Lp = cg_dense.chol_planes(_t(chol), 40)
     r = _t(rng.standard_normal((9, 40)).astype(np.float32))
-    want = cg_dense._solve_planar(Lp, r)
-    got = cg_dense._solve_planar(Lp[cg_dense.PLANES45], r, packed=True)
-    assert len(cg_dense.PLANES45) == 45
-    assert torch.equal(got, want)
+    planes = [a * 9 + c for a in range(9) for c in range(a + 1)]
+    packed = Lp[planes]
+    read = set()
+
+    def at(a, c):
+        e = a * (a + 1) // 2 + c
+        read.add(e)
+        return packed[e]
+
+    y = [None] * 9
+    for i in range(9):
+        s = r[i]
+        for k in range(i):
+            s = s - at(i, k) * y[k]
+        y[i] = s / at(i, i)
+    z = [None] * 9
+    for i in reversed(range(9)):
+        s = y[i]
+        for k in range(i + 1, 9):
+            s = s - at(k, i) * z[k]
+        z[i] = s / at(i, i)
+    assert torch.equal(torch.stack(z), cg_dense._solve_planar(Lp, r))
+    assert read == set(range(45))
 
 
 def _half_deal(N):
@@ -377,18 +399,17 @@ def test_k3_launch_follows_plan(monkeypatch):
     """_launch hands each system to the kernel k3_plan names; no
     launcher stands in for another."""
     seen = []
-    for name in ("cluster", "half"):
-        monkeypatch.setattr(cg_dense, f"_launch_{name}",
-                            lambda Hz, b2, Lp, N, name=name, **kw:
-                            seen.append((name, N)))
+    monkeypatch.setattr(cg_dense, "_launch_in_cluster",
+                        lambda name, Hz, b2, Lp, N, **kw:
+                        seen.append((name, N)))
     monkeypatch.setattr(cg_dense, "_launch_grid",
                         lambda Hz, b2, Lp, **kw: seen.append(("grid",)))
-    for N in (20, 49, 92, 93, 100, 126, 128, 129):
+    for N in (20, 49, 92, 93, 96, 97, 100, 126, 128, 129):
         M = 9 * (128 if N <= 128 else 256)
         cg_dense._launch(torch.zeros(M, M), None, None, N, max_iters=1)
     assert seen == [("cluster", 20), ("cluster", 49), ("cluster", 92),
-                    ("half", 93), ("half", 100), ("half", 126),
-                    ("half", 128), ("grid",)]
+                    ("cluster", 93), ("cluster", 96), ("half", 97),
+                    ("half", 100), ("half", 126), ("half", 128), ("grid",)]
 
 
 @pytest.mark.parametrize("q_tol,max_it", [(1e-1, 100), (float("-inf"), 25)])
