@@ -102,13 +102,13 @@ def half_smem_bytes(N: int, pairs_per_cta: int) -> int:
     (ld each), Lp's 45 lower planes (45 Np), the rows' places (4 words
     each), the column sums received by parity (2 x 16 x 2 pairs_per_cta),
     the row sums (2 pairs_per_cta), the pq partials, the reduction
-    scratch, 4 zeros and a buffer of round 1's column sums (ld)."""
+    scratch and a buffer of round 1's column sums (ld)."""
     Np = half_lanes(N)
     ld = 9 * Np
     return 48 + 4 * (pairs_per_cta * (ld + 4) + 6 * ld + 45 * Np
                      + 4 * 2 * pairs_per_cta
                      + (2 * CLUSTER + 1) * 2 * pairs_per_cta
-                     + 2 * CLUSTER * 8 + 6 * 8 + 4)
+                     + 2 * CLUSTER * 8 + 6 * 8)
 
 
 def half_fits(N: int) -> bool:

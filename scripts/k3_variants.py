@@ -30,8 +30,6 @@ and of the half kernel (pcg_dense_half_kernel):
   half              the kernel as it is
   half_inline       round 1 of the product inlined at its two calls
                     (twice the loop's code)
-  half_pred         round 1's loads predicated into zeroed registers,
-                    not reading a block of shared zeros
   half_skip         round 1's row groups branch past the chunks their
                     first row does not reach, not computing zeros
   half_g1, _g5, _g9 round 1 by groups of 1, 5 or 9 rows, not 3
@@ -278,34 +276,15 @@ VARIANTS["half_outline"] = ("half", [(
 for g in (1, 5, 9):
     VARIANTS[f"half_g{g}"] = ("half", [(
         "constexpr int kHGroup = 3;", f"constexpr int kHGroup = {g};")])
-# round 1's loads predicated (each lane's registers zeroed, then a
-# predicated ld.shared), not the shared zeros
-VARIANTS["half_pred"] = ("half", [(
-    """  const float* zm = z - 128 * m;  // z, seen from chunk m
-#pragma unroll
-  for (int k = k0; k < k0 + kHGroup && k < kHRows; ++k) {
-    const float* p = in && c4 >= r4[k] ? row[k] : zm;
-    h[k] = *reinterpret_cast<const float4*>(p + 128 * m);
-  }""", r"""#pragma unroll
-  for (int k = k0; k < k0 + kHGroup && k < kHRows; ++k) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    asm volatile(
-        "{\n .reg .pred q;\n setp.ne.b32 q, %4, 0;\n"
-        " @q ld.shared.v4.f32 {%0, %1, %2, %3}, [%5];\n}\n"
-        : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w)
-        : "r"(static_cast<int>(in && c4 >= r4[k])),
-          "r"(smem_u32(row[k] + 128 * m)));
-    h[k] = v;
-  }""")])
 # round 1's groups skip the chunks their first row does not reach (a
 # uniform branch per group and chunk), not computing zeros
 VARIANTS["half_skip"] = ("half", [(
-    "    r1_loads(h, row, r4, k0, 0, 4 * lane < ld, sm.zero);",
-    "    if (r4[k0] < 128) r1_loads(h, row, r4, k0, 0, 4 * lane < ld, sm.zero);"), (
+    "    r1_loads(h, row, r4, k0, 0, 4 * lane < ld);",
+    "    if (r4[k0] < 128) r1_loads(h, row, r4, k0, 0, 4 * lane < ld);"), (
     "      r1_products(h, pcm, vr, s, acc[m], k0);",
     "      if (r4[k0] < 128 * m + 128) r1_products(h, pcm, vr, s, acc[m], k0);"), (
-    "        r1_loads(h, row, r4, k0, m + 1, inn, sm.zero);",
-    "        if (r4[k0] < 128 * m + 256) r1_loads(h, row, r4, k0, m + 1, inn, sm.zero);")])
+    "        r1_loads(h, row, r4, k0, m + 1, inn);",
+    "        if (r4[k0] < 128 * m + 256) r1_loads(h, row, r4, k0, m + 1, inn);")])
 # the warps' column sums in two or three chains (four or three stages),
 # not four (two stages)
 for c in (2, 3):

@@ -470,9 +470,9 @@ def test_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain twin on the card: phase 2 of
     chip_smoke.py, at its tolerances -- K1 at every run width up to 64,
     K = 2 and 3, f32 and f64, on run counts ragged against its tile and on
-    a stream long enough to cycle its copy pipeline; K2; both K3 kernels
-    on both sides of each size switch, through the residual reset, and
-    through the wrapper pcg_dense."""
+    a stream long enough to cycle its copy pipeline; K2; the three K3
+    kernels on both sides of each size switch, through the residual
+    reset, and through the wrapper pcg_dense."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     import chip_smoke
