@@ -4,25 +4,30 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
-parallel), checks each kernel against its plain PyTorch twin on the card,
-drives the port's main path through its CLI entry point (`run_app`) on
-three seeded synthetic twins of BAL problems -- ladybug-49 (whose dense
-RCS fits the full-row cluster CG kernel), trafalgar-126 (the half
-cluster CG kernel) and trafalgar-257 (above the CG kernels' gate; and
-once more with pallas_cg="on", the grid CG kernel) -- cross-checks a small solve
-on the card against the CPU, shows from the wrappers' launch counts in
-one more solve of each path (under a profiler trace, which must hold the
-same launches) that each path went through its kernels and what they
-took per LM attempt, times every kernel beside its
-bound, its plain twin and a one-call PyTorch yardstick (device time
-from a profiler trace, with the names of the kernels in it), and
+parallel), checks each kernel against its plain PyTorch twin on the card
+(and the block-sparse CG operators against the CPU), drives the port's
+main path through its CLI entry point (`run_app`) on four seeded
+synthetic twins of BAL problems -- ladybug-49 (whose dense RCS fits the
+full-row cluster CG kernel), trafalgar-126 (the half cluster CG kernel),
+trafalgar-257 (above the CG kernels' gate; and once more with
+pallas_cg="on", the grid CG kernel) and final-3068 (above
+dense_rcs_max_cameras: the block-sparse RCS, BSR mode; in float64 also
+with the half table and in dense mode, which must agree) --
+cross-checks small solves on the card against the CPU, shows from the
+wrappers' launch counts in one more solve of each path (under a
+profiler trace, which must hold the same launches) that each path went
+through its kernels and what they took per LM attempt, times every
+kernel beside its bound, its plain twin and a one-call PyTorch
+yardstick (device time from a profiler trace, with the names of the
+kernels in it), times the CG operators at the final-3068 system, and
 prints
 
+    {"bsr_operators": [...]}
     <nvidia-smi name, power limit>
     {"kernels": [...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-as its last three lines. Exits non-zero, printing no result, without a
+as its last four lines. Exits non-zero, printing no result, without a
 CUDA device or without the repository's package beside it. It imports
 nothing of JAX or of the JAX package. Scratch files go to
 build/chip_smoke/ (listed in .gitignore).
@@ -60,6 +65,13 @@ TWINS = {
                          structure="clustered", track_sigma=1.0,
                          window_stretch=2.0, p_far=0.02,
                          max_window_frac=0.5),
+    # BAL's final problem-3068-310854-1653812 with scale_bench.py's
+    # final4585 knobs: above dense_rcs_max_cameras, so the block-sparse
+    # RCS (BSR mode, packed table)
+    "final3068": dict(num_cams=3068, num_lms=310854, num_obs=1653812,
+                      structure="clustered", track_sigma=1.1,
+                      window_stretch=3.0, p_far=0.03,
+                      max_window_frac=0.08),
 }
 # the kernel each row of the table times, as its name appears in a
 # profiler trace
@@ -557,9 +569,11 @@ def write_twin(name: str, seed: int = 17) -> Path:
     return path
 
 
-def run_cli(bal_path: Path, iters: int, tag: str, extra=()) -> dict:
+def run_cli(bal_path: Path, iters: int, tag: str, extra=(),
+            use_double: bool = False) -> dict:
     """One solve through the port's CLI entry point on the card (extra:
-    more CLI flags); returns the ba_log.json it wrote."""
+    more CLI flags), float32 unless use_double; returns the ba_log.json
+    it wrote."""
     from rootba_tpu_torch.cli.bal import run_app
 
     wd = WORK / tag
@@ -568,7 +582,8 @@ def run_cli(bal_path: Path, iters: int, tag: str, extra=()) -> dict:
     if log.exists():
         log.unlink()
     argv = ["-C", str(wd), "--input", str(bal_path), "--device", "cuda",
-            "--use-double", "false", "--max-num-iterations", str(iters),
+            "--use-double", str(use_double).lower(),
+            "--max-num-iterations", str(iters),
             "--function-tolerance", "0", "--verbosity-level", "1",
             "--quiet", *PREPROCESS, *extra]
     rc = run_app("chip smoke", argv)
@@ -594,44 +609,54 @@ def summarize_log(d: dict, tag: str) -> dict:
                     "residual_evaluation_time")})
 
 
+# the CG operators of phase 5's small solves: the default (dense RCS),
+# and BSR mode with the packed and with the half table
+SMALL_MODES = {"dense": {}, "bsr": dict(sqrt_rcs_mode="bsr"),
+               "bsr_sym": dict(sqrt_rcs_mode="bsr", bsr_pack_max_gb=0.0)}
+
+
 def small_cross_check() -> None:
     """A small solve (12 cameras) on the card against the same solve on
-    the CPU through the plain twins: float64 to rel 1e-8 with identical
-    accept/reject and CG counts; float32 final cost to rel 1e-4."""
+    the CPU through the plain twins, in each of SMALL_MODES: float64 to
+    rel 1e-8 with identical accept/reject and CG counts; float32 final
+    cost to rel 1e-4."""
     from rootba_tpu_torch.bal.synthetic import generate_synthetic_bal
     from rootba_tpu_torch.config.options import SolverOptions
     from rootba_tpu_torch.solver.lm import bundle_adjust
 
-    for use_double in (True, False):
-        out = {}
-        for dev in ("cuda", "cpu"):
-            p = generate_synthetic_bal(num_cams=12, num_lms=200,
-                                       mean_obs_per_lm=4.5, seed=3)
-            p.normalize(100.0)
-            p.perturb(0.001, 0.05, 0.05, 38401)
-            p.filter_obs(0.1)
-            opts = SolverOptions(use_double=use_double, verbosity_level=0,
-                                 max_num_iterations=20,
-                                 initial_trust_region_radius=10.0,
-                                 function_tolerance=1e-5)
-            s = bundle_adjust(p, opts, device=dev)
-            out[dev] = ([i.cost.all.error for i in s.iterations],
-                        [i.step_is_successful for i in s.iterations],
-                        [i.linear_solver_iterations for i in s.iterations])
-        (cg, fg, ig), (cc, fc, ic) = out["cuda"], out["cpu"]
-        rel = abs(cg[-1] - cc[-1]) / abs(cc[-1])
-        print(f"[phase 5] small solve {'f64' if use_double else 'f32'}: "
-              f"final cost {cg[-1]:.10g} (card) vs {cc[-1]:.10g} (cpu), "
-              f"rel {rel:.2e}; {len(cg)}/{len(cc)} iterations; CG "
-              f"{ig} / {ic}", flush=True)
-        if use_double:
-            check(fg == fc and ig == ic and len(cg) == len(cc),
-                  "small f64 solve: accept/reject or CG counts differ "
-                  "between card and CPU")
-            check(max(abs(a - b) / abs(b) for a, b in zip(cg, cc)) < 1e-8,
-                  "small f64 solve: costs differ beyond rel 1e-8")
-        else:
-            check(rel < 1e-4, f"small f32 solve: final cost rel {rel}")
+    for mode, kw in SMALL_MODES.items():
+        for use_double in (True, False):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                p = generate_synthetic_bal(num_cams=12, num_lms=200,
+                                           mean_obs_per_lm=4.5, seed=3)
+                p.normalize(100.0)
+                p.perturb(0.001, 0.05, 0.05, 38401)
+                p.filter_obs(0.1)
+                opts = SolverOptions(use_double=use_double,
+                                     verbosity_level=0,
+                                     max_num_iterations=20,
+                                     initial_trust_region_radius=10.0,
+                                     function_tolerance=1e-5, **kw)
+                s = bundle_adjust(p, opts, device=dev)
+                out[dev] = ([i.cost.all.error for i in s.iterations],
+                            [i.step_is_successful for i in s.iterations],
+                            [i.linear_solver_iterations
+                             for i in s.iterations])
+            (cg, fg, ig), (cc, fc, ic) = out["cuda"], out["cpu"]
+            rel = abs(cg[-1] - cc[-1]) / abs(cc[-1])
+            what = f"small {mode} solve {'f64' if use_double else 'f32'}"
+            print(f"[phase 5] {what}: final cost {cg[-1]:.10g} (card) vs "
+                  f"{cc[-1]:.10g} (cpu), rel {rel:.2e}; {len(cg)}/"
+                  f"{len(cc)} iterations; CG {ig} / {ic}", flush=True)
+            if use_double:
+                check(fg == fc and ig == ic and len(cg) == len(cc),
+                      f"{what}: accept/reject or CG counts differ between "
+                      f"card and CPU")
+                check(max(abs(a - b) / abs(b) for a, b in zip(cg, cc))
+                      < 1e-8, f"{what}: costs differ beyond rel 1e-8")
+            else:
+                check(rel < 1e-4, f"{what}: final cost rel {rel}")
 
 
 # ---------------------------------------------------------------------------
@@ -882,6 +907,233 @@ def k3_row(name: str, call: tuple, errs: dict, path_errs: tuple,
     return row
 
 
+# ---------------------------------------------------------------------------
+# BSR mode: the block-sparse reduced camera system (plain PyTorch; no
+# kernel of its own)
+
+def random_pairs(rng, N: int, P: int):
+    """P distinct camera pairs (row <= col, sorted), a few self-pairs."""
+    import numpy as np
+
+    iu, ju = np.triu_indices(N)
+    sel = np.sort(rng.choice(iu.size, P, replace=False))
+    return iu[sel].astype(np.int32), ju[sel].astype(np.int32)
+
+
+def bsr_scale(table, diag, bsr, x):
+    """|H| |x| through the packed operator: the sum of the magnitudes of
+    each y entry's products, against which a reordered sum is held."""
+    from rootba_tpu_torch.solver.linearization import bsr_matvec_packed
+
+    return bsr_matvec_packed(table.abs(), diag.abs(), bsr, x.abs())
+
+
+def check_bsr(dev) -> None:
+    """The BSR table build and both operators on the card against the
+    port on the CPU, from the same seeded inputs: the packed table equal
+    (data movement), the packed and the half-table matvec to 1e-5 (f32)
+    / 1e-12 (f64) of |H| |x|; the larger system runs several chunks."""
+    import numpy as np
+    import torch
+
+    from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
+    from rootba_tpu_torch.solver import linearization as lz
+
+    rng = np.random.default_rng(8)
+    for N, P in ((300, 6000), (3068, 300000)):
+        pr, pc = random_pairs(rng, N, P)
+        host = build_bsr_matvec(pr, pc, N)
+        idx = {d: lz.BsrMatvecIndex.from_host(host, d)
+               for d in ("cpu", dev)}
+        for dtype in (torch.float32, torch.float64):
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            half = torch.as_tensor(rng.normal(size=(P, 81)), dtype=dtype)
+            diag = torch.as_tensor(rng.normal(size=(N, 9, 9)), dtype=dtype)
+            x = torch.as_tensor(rng.normal(size=(N, 9)), dtype=dtype)
+            out = {}
+            for d in ("cpu", dev):
+                h, g, v = half.to(d), diag.to(d), x.to(d)
+                packed = lz.bsr_pack_from_half(h, idx[d])
+                out[d] = (packed.cpu(),
+                          lz.bsr_matvec_packed(packed, g, idx[d], v).cpu(),
+                          lz.bsr_matvec_sym(h, g, idx[d], v).cpu())
+            scale = bsr_scale(out["cpu"][0], diag, idx["cpu"], x)
+            check(torch.equal(out[dev][0], out["cpu"][0]),
+                  f"BSR pack N={N} P={P} {dtype}: card != cpu")
+            errs = []
+            for k, name in ((1, "packed"), (2, "sym")):
+                err = (out[dev][k] - out["cpu"][k]).abs()
+                errs.append(float(err.max()))
+                check(bool((err <= tol * scale + 1e-30).all()),
+                      f"BSR {name} matvec N={N} P={P} {dtype}: max abs err "
+                      f"{errs[-1]}")
+            print(f"[phase 2] BSR N={N} P={P} {str(dtype)[6:]} (E = "
+                  f"{host.blk_idx.size}, W = {idx['cpu'].width}): pack "
+                  f"equal, matvec packed / sym max abs err {errs[0]:.3e} / "
+                  f"{errs[1]:.3e} (tol {tol:g} of |H||x|)", flush=True)
+
+
+class RouteSpy:
+    """While a solve runs, records the regime of each BSR linear solve
+    (the symmetric flag that sqrt_flat passes to bsr_table_matvec; none
+    in dense mode). With keep, also the last stage2's half table, packed
+    table, diagonal blocks, index and pair list, for the timing phase."""
+
+    def __init__(self, keep: bool = False):
+        from rootba_tpu_torch.solver import sqrt_flat
+
+        self.mod = sqrt_flat
+        self.keep = keep
+        self.regimes = []
+        self.system = {}
+        self.orig = {k: getattr(sqrt_flat, k) for k in (
+            "flat_assemble_rcs_bsr", "bsr_table_matvec")}
+
+    def _assemble(self, lin, stage2, pairs, *a, **kw):
+        half, diag = self.orig["flat_assemble_rcs_bsr"](lin, stage2, pairs,
+                                                        *a, **kw)
+        if self.keep:
+            self.system.update(half=half, pr=pairs.pair_row,
+                               pc=pairs.pair_col)
+        return half, diag
+
+    def _matvec(self, table, diag, bsr, symmetric):
+        self.regimes.append(bool(symmetric))
+        if self.keep:
+            self.system.update(table=table, diag=diag, bsr=bsr)
+        return self.orig["bsr_table_matvec"](table, diag, bsr, symmetric)
+
+    def __enter__(self):
+        self.mod.flat_assemble_rcs_bsr = self._assemble
+        self.mod.bsr_table_matvec = self._matvec
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.orig.items():
+            setattr(self.mod, k, f)
+        return False
+
+
+def dense_from_half(half, diag, pr, pc):
+    """The dense z-space system Hz[a*N+i, b*N+j] = block(i,j)[a,b] that
+    the dense mode would assemble for the same blocks: each pair's block
+    at (row, col), its transpose at (col, row), the diagonal blocks."""
+    import torch
+
+    from rootba_tpu_torch.solver.linearization import _block_transpose
+
+    N = diag.shape[0]
+    d81 = half.new_zeros((N * N, 81))
+    d81.index_add_(0, pr * N + pc, half)
+    d81.index_add_(0, pc * N + pr, half[:, _block_transpose(half.device)])
+    d81.index_add_(0, torch.arange(N, device=half.device) * (N + 1),
+                   diag.reshape(N, 81))
+    return d81.T.reshape(9, 9, N, N).permute(0, 2, 1, 3).reshape(
+        9 * N, 9 * N)
+
+
+def bsr_library_matrix(half, diag, pr, pc):
+    """The same system as a torch sparse BSR tensor of 9x9 blocks (one
+    block per camera pair in each direction, the diagonal blocks summed
+    with self-pairs): what `torch.mv` hands to the sparse library."""
+    import torch
+
+    from rootba_tpu_torch.solver.linearization import _block_transpose
+
+    N = diag.shape[0]
+    dev = half.device
+    keys = torch.cat([pr * N + pc, pc * N + pr,
+                      torch.arange(N, device=dev) * (N + 1)])
+    vals = torch.cat([half, half[:, _block_transpose(dev)],
+                      diag.reshape(N, 81)])
+    uniq, inv = torch.unique(keys, return_inverse=True)
+    blocks = vals.new_zeros((uniq.numel(), 81)).index_add_(0, inv, vals)
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(uniq // N, minlength=N), 0)
+    return torch.sparse_bsr_tensor(crow, uniq % N, blocks.view(-1, 9, 9),
+                                   size=(9 * N, 9 * N),
+                                   check_invariants=False)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bsr_operator_rows(system: dict, smi: str) -> list:
+    """One application of each CG operator at the final-3068 system:
+    bsr_matvec_packed (the default regime), bsr_matvec_sym (the half
+    table) and the dense GEMV (torch.mv on the same system assembled
+    densely), each against its byte bound (each input read once, y
+    written once), with the sparse library's BSR product beside the
+    packed one; the three y held to 1e-5 of |H| |x|."""
+    import torch
+
+    from rootba_tpu_torch.solver.explicit_sc import sc_matvec_dense
+    from rootba_tpu_torch.solver.linearization import (
+        bsr_matvec_packed,
+        bsr_matvec_sym,
+    )
+
+    half, table, diag, bsr = (system[k] for k in ("half", "table", "diag",
+                                                  "bsr"))
+    pr, pc = system["pr"], system["pc"]
+    N = diag.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(N, 9, generator=g, dtype=table.dtype).to(table.device)
+    y_pack = bsr_matvec_packed(table, diag, bsr, x)
+    scale = bsr_scale(table, diag, bsr, x)
+
+    def held(y, what):
+        err = (y - y_pack).abs()
+        check(bool((err <= 1e-5 * scale + 1e-30).all()),
+              f"final3068 {what}: max abs err {float(err.max())} against "
+              f"the packed matvec")
+        return float(err.max())
+
+    y_bytes = N * 9 * x.element_size()
+    common = dict(route="torch", card=smi, dtype=str(table.dtype)[6:],
+                  cameras=N, pairs=half.shape[0], entries=table.shape[0],
+                  width=bsr.width)
+    rows = []
+    try:
+        A = bsr_library_matrix(half, diag, pr, pc)
+        xf = x.reshape(-1)
+        lib_err = held(torch.mv(A, xf).view(N, 9), "library BSR product")
+        lib = both("library_ms", lambda: torch.mv(A, xf), 20)
+    except (RuntimeError, NotImplementedError) as e:
+        lib_err, lib = None, {"library_ms": None,
+                              "library_error": str(e)[:200]}
+    A = None
+    nb = nbytes(table, bsr.col_idx, bsr.idx2, diag, x) + y_bytes
+    rows.append(dict(name="bsr_matvec_packed", **common, bytes=nb,
+                     **bound(nb, 2 * 81 * (table.shape[0] + N)),
+                     **both("ms", lambda: bsr_matvec_packed(
+                         table, diag, bsr, x), 20),
+                     **lib, library_max_abs_err=lib_err))
+    sym_err = held(bsr_matvec_sym(half, diag, bsr, x), "sym matvec")
+    nb = nbytes(half, bsr.blk_idx, bsr.col_idx, bsr.idx2, diag, x) + y_bytes
+    rows.append(dict(name="bsr_matvec_sym", **common, bytes=nb,
+                     max_abs_err=sym_err,
+                     **bound(nb, 2 * 81 * (table.shape[0] + N)),
+                     **both("ms", lambda: bsr_matvec_sym(
+                         half, diag, bsr, x), 20)))
+    Hz = dense_from_half(half, diag, pr, pc)
+    dense_err = held(sc_matvec_dense(Hz, x), "dense GEMV")
+    z = x.T.reshape(-1).contiguous()
+    nb = nbytes(Hz, z) + y_bytes
+    rows.append(dict(name="dense_gemv", **common, bytes=nb,
+                     max_abs_err=dense_err,
+                     **bound(nb, 2 * Hz.shape[0] * Hz.shape[1]),
+                     **both("ms", lambda: torch.mv(Hz, z), 20)))
+    print("[timing] CG operators at the final-3068 system on "
+          f"{torch.cuda.get_device_name(0)}: " + "; ".join(
+              f"{r['name']}: {r['ms']:.5f} ms (per call "
+              f"{r['ms_per_call']:.5f}, bound {r['bound_ms']:.5f}, "
+              f"{r['bytes'] / 1e9:.4f} GB)" for r in rows)
+          + f"; library BSR product {rows[0]['library_ms']}", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -904,6 +1156,7 @@ def main() -> int:
           f"{time.monotonic() - t0:.1f} s (parallel nvcc)", flush=True)
 
     errs = check_kernels(dev)
+    check_bsr(dev)
 
     # phases 3 and 4 drive each path untraced: a recording solve (which
     # keeps the kernels' main-path inputs for the timing phase) and, for
@@ -979,16 +1232,97 @@ def main() -> int:
 
     small_cross_check()
 
+    # phase 7: the final-3068 twin, f32, default options, 5 LM
+    # iterations: above dense_rcs_max_cameras, so BSR mode with the
+    # packed table; host-timed, launch counts set to 0 just before
+    final = write_twin("final3068")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t = time.monotonic()
+    with RouteSpy() as spy:
+        fl = run_cli(final, 5, "final3068_timed")
+    wall = time.monotonic() - t
+    n7 = dict(kernels.LAUNCHES)
+    peak7 = torch.cuda.max_memory_allocated()
+    fs = summarize_log(fl, "final3068")
+    attempts7 = len(fl["iteration_time"]) - 1
+    check(len(spy.regimes) == attempts7 and set(spy.regimes) == {False},
+          f"final3068: linear solves by regime (True = half table) "
+          f"{spy.regimes}, {attempts7} attempts: not BSR packed")
+    for k in n7:
+        want = k in ("outer81_fold", "w_build")
+        check((n7[k] > 0) == want, f"final3068: kernel {k} launched "
+                                   f"{n7[k]} times {n7}")
+    f_it = sum(fs["iteration_s"]) / len(fs["iteration_s"])
+    print(f"[phase 7] final-3068 twin f32 (BSR, packed table), 5 LM "
+          f"iterations: {f_it:.4f} s per LM iteration (iteration times "
+          f"{[round(x, 4) for x in fs['iteration_s']]}), CLI wall "
+          f"{wall:.3f} s, minimizer {fs['minimizer_s']:.3f} s, cost "
+          f"{fs['initial_cost']:.6f} -> {fs['final_cost']:.6f}, CG "
+          f"iterations per attempt {fs['cg_iters']}, stage seconds "
+          f"{fs['stage_s']}, launches {n7}, peak device memory "
+          f"{peak7 / 2**20:.1f} MiB ({held / 2**20:.1f} MiB of it held "
+          f"by this script before the solve)", flush=True)
+
+    # phase 7b: the same twin in f64, 3 LM iterations, in BSR mode with
+    # the packed table, with the half table, and in dense mode: the same
+    # accept/reject flags and costs to rel 1e-8 between every two
+    f64_modes = {"bsr": ((), {False}),
+                 "bsr_sym": (("--bsr-pack-max-gb", "0"), {True}),
+                 "dense": (("--dense-rcs-max-cameras", "4096"), set())}
+    f64 = {}
+    for mode, (extra, regimes) in f64_modes.items():
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        with RouteSpy() as spy:
+            lg = run_cli(final, 3, f"final3068_f64_{mode}", extra,
+                         use_double=True)
+        wall = time.monotonic() - t
+        check(set(spy.regimes) == regimes
+              and (not regimes or len(spy.regimes)
+                   == len(lg["iteration_time"]) - 1),
+              f"final3068 f64 {mode}: linear solves by regime "
+              f"{spy.regimes}")
+        summarize_log(lg, f"final3068_f64_{mode}")
+        f64[mode] = lg
+        print(f"[phase 7b] final-3068 twin f64 {mode}, 3 LM iterations: "
+              f"costs {lg['cost']}, accepted {lg['step_is_successful']}, "
+              f"CG iterations {lg['linear_solver_iterations'][1:]}, CLI "
+              f"wall {wall:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+    names = list(f64)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            ca, cb = f64[a]["cost"], f64[b]["cost"]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(ca, cb))
+            check(f64[a]["step_is_successful"] == f64[b][
+                "step_is_successful"] and len(ca) == len(cb) and rel < 1e-8,
+                  f"final3068 f64: {a} and {b} differ (accepted "
+                  f"{f64[a]['step_is_successful']} / "
+                  f"{f64[b]['step_is_successful']}, costs rel {rel})")
+            print(f"[phase 7b] {a} vs {b}: identical accept/reject, costs "
+                  f"within rel {rel:.2e} (tol 1e-8)", flush=True)
+    f64 = None
+
     # phase 6: the counted solve of each path, under a trace: the launch
     # counts set to 0 just before it and read just after
     paths = {}
     logs = {}
+    final_spy = RouteSpy(keep=True)
     for path, bal, iters, k3, extra in (
             ("ladybug", lady, 20, "pcg_dense_cluster", ()),
             ("trafalgar126", mid, 5, "pcg_dense_half", ()),
             ("trafalgar", traf, 5, None, ()),
-            ("trafalgar_on", traf, 3, "pcg_dense_grid", K3_ON)):
-        log, n, ms = counted_run(bal, iters, path, extra)
+            ("trafalgar_on", traf, 3, "pcg_dense_grid", K3_ON),
+            ("final3068", final, 2, None, ())):
+        if path == "final3068":
+            # keeps the last stage2's system for the operator timing
+            with final_spy:
+                log, n, ms = counted_run(bal, iters, path, extra)
+        else:
+            log, n, ms = counted_run(bal, iters, path, extra)
         logs[path] = log
         paths[path] = (n, ms)
         summarize_log(log, path)
@@ -1038,6 +1372,9 @@ def main() -> int:
                       f"(bound {r['bound_ms']:.5f}, plain "
                       f"{r['plain_ms']:.5f}), trace {r['ms_trace']}"
                       for r in rows), flush=True)
+    ops = bsr_operator_rows(final_spy.system, smi)
+    final_spy.system.clear()
+    print(json.dumps({"bsr_operators": ops}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 Host-side (numpy) copy of the JAX package's bucketing, trimmed to what
 the port's main path uses: `bucketize`, the PairStream / CamStream
-indices of the dense explicit reduced camera system, and
-`scatter_landmarks`. Landmarks are grouped by observation count into a
-small set of buckets; each bucket is a struct-of-arrays batch with a
-static per-landmark obs count (padded slots masked).
+indices of the explicit reduced camera system, the BsrMatvec index of
+its block-sparse operator, and `scatter_landmarks`. Landmarks are
+grouped by observation count into a small set of buckets; each bucket
+is a struct-of-arrays batch with a static per-landmark obs count
+(padded slots masked).
 
 Exact buckets for nobs < bucket_pow2_from (default 9, mirroring the
 reference's static specializations), power-of-two padded buckets above.
@@ -180,6 +181,95 @@ def _pad_runs(code_sorted, width, *cols):
         out[dst] = col
         outs.append(out)
     return outs, np.repeat(u, padded // width)
+
+
+def _csr_rows(pos: np.ndarray, seg: np.ndarray, num_segments: int,
+              width: int, dump: int):
+    """Shared virtual-row packing: scatter sorted positions `pos`
+    (segment ids `seg`, already sorted by segment) into fixed-width
+    rows grouped by segment. Returns (idx [R,width], idx2 [S,vmax],
+    rows_per_segment)."""
+    counts = np.bincount(seg, minlength=num_segments).astype(np.int64)
+    rows_per_seg = -(-counts // width)
+    R = max(int(rows_per_seg.sum()), 1)
+    idx = np.full((R, width), dump, dtype=np.int64)
+    row_starts = np.zeros(num_segments + 1, dtype=np.int64)
+    row_starts[1:] = np.cumsum(rows_per_seg)
+    within = (np.arange(pos.size, dtype=np.int64)
+              - np.repeat(np.cumsum(counts) - counts, counts))
+    row = np.repeat(row_starts[:-1], counts) + within // width
+    col = within % width
+    idx[row, col] = pos
+    vmax = max(int(rows_per_seg.max(initial=1)), 1)
+    idx2 = np.full((num_segments, vmax), R, dtype=np.int64)
+    rr = np.repeat(np.arange(num_segments, dtype=np.int64), rows_per_seg)
+    cc = (np.arange(rr.size, dtype=np.int64)
+          - np.repeat(np.cumsum(rows_per_seg) - rows_per_seg,
+                      rows_per_seg))
+    idx2[rr, cc] = np.arange(rr.size, dtype=np.int64)
+    return idx, idx2, rows_per_seg
+
+
+class BsrMatvec(NamedTuple):
+    """Camera-major index for the block-sparse RCS matvec.
+
+    The dense z-space GEMV needs the [9N, 9N] matrix on the device,
+    which grows with the square of the camera count; BAL problems'
+    camera-pair graphs are sparse at large counts, so above
+    dense_rcs_max_cameras the CG operator is applied block-sparsely:
+    each unique strict pair (i, j) contributes H_ij x_j to y_i AND
+    H_ij' x_i to y_j. Both directions are laid out as one camera-major
+    entry list (2P entries), packed into fixed-width runs: per entry,
+    the [81] block row of the [2P, 81] table [H_up; H_up'] times the
+    [9] x row of the source camera, summed over runs, then over each
+    camera's runs through idx2. No scatter anywhere; the transpose is a
+    static column permutation applied once per stage2, not per CG
+    iteration.
+    """
+
+    blk_idx: np.ndarray  # [R, width] int32 row into the [2P,81] block
+    #   table: pair id p for (row=pair_row[p]), P + p for the
+    #   transposed direction (row=pair_col[p]); pad = 2P (reads zeros)
+    col_idx: np.ndarray  # [R, width] int32 source camera of x (pad = N)
+    idx2: np.ndarray  # [N, vmax] int32 run-row ids (pad = R)
+
+
+def build_bsr_matvec(pair_row: np.ndarray, pair_col: np.ndarray,
+                     num_cameras: int, width: int = 0) -> BsrMatvec:
+    """Build the block-sparse matvec index from the strict-pair list
+    (pair_row[p] < pair_col[p], as build_pair_stream produces it).
+
+    width=0 picks the run width adaptively: every padded slot costs a
+    row of the packed block table per matvec
+    (solver.linearization.bsr_matvec_packed), so the width minimizing
+    the total of padded slots wins."""
+    P = pair_row.size
+    N = num_cameras
+    rows = np.concatenate([pair_row.astype(np.int64),
+                           pair_col.astype(np.int64)])
+    cols = np.concatenate([pair_col.astype(np.int64),
+                           pair_row.astype(np.int64)])
+    if width <= 0:
+        counts = np.bincount(rows, minlength=N)
+        best = None
+        width = 64
+        for w in (8, 16, 32, 64):
+            padded = int(np.sum(-(-counts // w) * w))
+            if best is None or padded < best:
+                best, width = padded, w
+    blks = np.concatenate([np.arange(P, dtype=np.int64),
+                           P + np.arange(P, dtype=np.int64)])
+    order = np.argsort(rows, kind="stable")
+    rows, cols, blks = rows[order], cols[order], blks[order]
+    pos_rows, idx2, _ = _csr_rows(
+        np.arange(rows.size, dtype=np.int64), rows, N, width, rows.size)
+    blks_ext = np.concatenate([blks, [2 * P]])
+    cols_ext = np.concatenate([cols, [N]])
+    sel = np.minimum(pos_rows, rows.size)
+    return BsrMatvec(
+        blk_idx=blks_ext[sel].astype(np.int32),
+        col_idx=cols_ext[sel].astype(np.int32),
+        idx2=idx2.astype(np.int32))
 
 
 def scatter_landmarks(

@@ -140,7 +140,7 @@ class SolverOptions:
     """Reference: src/rootba/bal/solver_options.hpp:46-283, trimmed to the
     options the port reads. The JAX package's knobs of paths the port
     does not have yet (the host LM driver's timing machinery, the
-    multi-device mesh, checkpoints, strip gathers, BSR packing, PoBA and
+    multi-device mesh, checkpoints, strip gathers, PoBA and
     the CERES baselines) are left out, so setting one is an unknown-key
     or unknown-flag error."""
 
@@ -195,8 +195,8 @@ class SolverOptions:
     dense_rcs_max_cameras: int = opt(
         2048, help="assemble the reduced camera system as one dense "
                    "[9N, 9N] matrix (CG by dense GEMVs) when "
-                   "num_cameras <= this; above it the block-sparse "
-                   "mode is needed, which is not ported and raises")
+                   "num_cameras <= this; above it sqrt_rcs_mode='auto' "
+                   "picks the block-sparse mode ('bsr')")
     pair_gather: str = opt(
         "stream", help="gather of the RCS pair products: 'stream' "
                        "(per-bucket sub-streams of camera-sorted "
@@ -212,10 +212,20 @@ class SolverOptions:
         "auto", help="SQUARE_ROOT CG operator: 'implicit' applies "
                      "(Q2'Jp)'(Q2'Jp) matrix-free per CG iteration; "
                      "'dense' assembles the reduced camera system once "
-                     "per stage2 and runs CG on it; 'auto' picks dense "
-                     "when num_cameras <= dense_rcs_max_cameras, "
-                     "implicit under a forced JACOBI preconditioner; "
-                     "'bsr' is not ported and raises")
+                     "per stage2 and runs CG on it; 'bsr' assembles "
+                     "only its 9x9 blocks of camera pairs that share a "
+                     "landmark and runs CG on the block-sparse "
+                     "operator; 'auto' picks dense when num_cameras <= "
+                     "dense_rcs_max_cameras, bsr above it, implicit "
+                     "under a forced JACOBI preconditioner")
+    bsr_pack_max_gb: float = opt(
+        4.0, help="BSR CG: expand the block table once per stage2 into "
+                  "the run-major packed table (both directions of every "
+                  "pair block, a second copy of the [2P, 81] blocks, "
+                  "read in row slices by each matvec) only while it "
+                  "stays under this many GB; above it the matvec "
+                  "gathers both directions from the half table of "
+                  "[P, 81] strict-pair blocks on every application")
     compensated_accumulation: bool = opt(
         True, help="float32: accumulate the CG dot products and the "
                    "model-cost decrease l_diff with error-free "

@@ -184,6 +184,7 @@ def optimize_lm_fused(bp, options: SolverOptions,
         aux = linearizer.stage2(lins, lam_t)
         clock.lap("stage2")
         inc, stage2, cg_iters, _cg_term = linearizer.lsolve(lins, aux)
+        del aux  # the assembled system is not kept past its solve
         inc_finite_t = torch.all(torch.isfinite(inc))
         clock.lap("lsolve")
         new_cams, new_lm_ps, l_diff_t = linearizer.apply(

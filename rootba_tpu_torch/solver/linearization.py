@@ -2,9 +2,11 @@
 
 Port of the parts of the JAX package's `solver/linearization.py` that
 its main path runs: the camera state and bucket index, row chunking,
-the packed camera table, the cost evaluation, and the stream indices
-with their reducers (pair products, per-camera grams and sums) feeding
-the dense reduced camera system (`assemble_rcs_dense`).
+the packed camera table, the cost evaluation, the stream indices with
+their reducers (pair products, per-camera grams and sums) feeding the
+dense reduced camera system (`assemble_rcs_dense`), and the
+block-sparse form of that system with its CG operators (`BsrMatvecIndex`,
+`assemble_rcs_bsr`, `bsr_build_table`, `bsr_table_matvec`).
 
 Index tensors are uploaded once as int64. The stream indices address
 slot rows of a bucket's landmark tables; their fill sentinel (the
@@ -324,9 +326,7 @@ def assemble_rcs_dense(strip_a, strip_b, pairs: PairStreamIndex, lam,
 
     zero = Hup.new_zeros((1, P9 * P9))
     up = torch.cat([-Hup, zero], dim=0)
-    # block transpose as a column permutation of [P, 81]
-    perm_t = torch.arange(81, device=Hup.device).reshape(P9, P9).T.reshape(-1)
-    lo = torch.cat([-Hup[:, perm_t], zero], dim=0)
+    lo = torch.cat([-Hup[:, _block_transpose(Hup.device)], zero], dim=0)
     G = int(round(float(np.sqrt(pairs.up_idx.shape[0]))))
     dense81 = up[pairs.up_idx] + lo[pairs.lo_idx]  # [G*G, 81]
     diag_ids = torch.arange(N, device=Hup.device) * (G + 1)
@@ -338,3 +338,238 @@ def assemble_rcs_dense(strip_a, strip_b, pairs: PairStreamIndex, lam,
     eye = torch.eye(P9, dtype=Hz.dtype, device=Hz.device)
     diag = diag81.reshape(N, P9, P9) + lam * eye
     return Hz, diag
+
+
+# ---------------------------------------------------------------------------
+# The block-sparse reduced camera system (sqrt_rcs_mode="bsr"): the same
+# pair and camera reductions as assemble_rcs_dense without the densify,
+# for camera counts whose dense [9N, 9N] matrix is too large. Every
+# reduction here is a gather and a sum in a fixed order (no scatter-add),
+# so the CG operator is deterministic on the card.
+
+# per-chunk gather budget of _level2_reduce (module global so tests can
+# shrink it and force the chunked path on toy problems)
+_LEVEL2_CHUNK_BYTES = 16 << 20
+# rows per chunk of the [P, 81] / [E, 81] table fills (module global so
+# tests can force several chunks and a tail): one chunk's transients
+# live at a time next to the one resident table
+_FILL_CHUNK_ROWS = (1 << 23) // 81
+# block entries per chunk of a matvec: its [chunk, 81] product
+# transient is the largest buffer a matvec allocates
+_MATVEC_CHUNK_ENTRIES = 512 << 10
+
+
+def _block_transpose(device) -> torch.Tensor:
+    """The column permutation of a [*, 81] table that transposes each
+    row-major 9x9 block."""
+    P9 = POSE_SIZE
+    return torch.arange(P9 * P9, device=device).reshape(P9, P9).T.reshape(-1)
+
+
+def _take_fill(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table rows at idx, zero rows where idx is past the table's end:
+    the reference's take(..., mode="fill") for a table too large to
+    copy with an appended zero row (idx >= 0)."""
+    n = table.shape[0]
+    if n == 0:
+        return table.new_zeros((idx.shape[0],) + tuple(table.shape[1:]))
+    rows = table.index_select(0, idx.clamp(max=n - 1))
+    return rows.masked_fill_((idx >= n)[:, None], 0)
+
+
+def _level2_reduce(rows: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
+    """Second-level run reduction: out[s] = sum_v rows[idx2[s, v]], idx2
+    padded with the dump row, which the caller appends to `rows` as a
+    zero row. Chunked over the segment axis so that one [chunk, vmax, F]
+    gather lives at a time."""
+    S, V = idx2.shape
+    F = rows.shape[1]
+    chunk = max(1, min(S, _LEVEL2_CHUNK_BYTES // max(V * F * 4, 1)))
+    out = rows.new_empty((S, F))
+    for a in range(0, S, chunk):
+        ic = idx2[a:a + chunk]
+        out[a:a + ic.shape[0]] = rows.index_select(
+            0, ic.reshape(-1)).reshape(-1, V, F).sum(dim=1)
+    return out
+
+
+@dataclass(frozen=True)
+class BsrMatvecIndex:
+    """Device copy of bucketing.BsrMatvec: blk_idx / col_idx flat
+    [R*width] (pads 2P and N), idx2 [N, vmax] (pad R)."""
+
+    blk_idx: torch.Tensor
+    col_idx: torch.Tensor
+    idx2: torch.Tensor
+    width: int
+
+    @property
+    def shape2d(self) -> Tuple[int, int]:
+        return (self.blk_idx.shape[0] // self.width, self.width)
+
+    @staticmethod
+    def from_host(bm, device) -> "BsrMatvecIndex":
+        def up(a):
+            return torch.as_tensor(np.asarray(a, np.int64).reshape(-1),
+                                   device=device)
+
+        return BsrMatvecIndex(
+            blk_idx=up(bm.blk_idx), col_idx=up(bm.col_idx),
+            idx2=torch.as_tensor(np.asarray(bm.idx2, np.int64),
+                                 device=device),
+            width=int(np.asarray(bm.blk_idx).shape[1]))
+
+
+def _pair_scale(pose_scale, pair_row, pair_col):
+    """Row scales S_i x S_j of the [*, 81] blocks of pairs (i, j)."""
+    P9 = POSE_SIZE
+    Sp = pose_scale[pair_row]
+    Sc = pose_scale[pair_col]
+    return Sp.repeat_interleave(P9, dim=1) * Sc.repeat(1, P9)
+
+
+def _scale_neg_chunked(Hup, pose_scale, pair_row, pair_col):
+    """-S_i Hup S_j IN PLACE over the [P, 81] pair table, chunk by chunk:
+    a whole-table scale tensor would double the table's footprint."""
+    P = Hup.shape[0]
+    for a in range(0, P, _FILL_CHUNK_ROWS):
+        b = min(P, a + _FILL_CHUNK_ROWS)
+        Hup[a:b].mul_(_pair_scale(pose_scale, pair_row[a:b],
+                                  pair_col[a:b])).neg_()
+    return Hup
+
+
+def assemble_rcs_bsr(strip_a, strip_b, pairs: PairStreamIndex, lam,
+                     num_cameras: int, buckets, pose_scale, diag81,
+                     symmetric: bool = False):
+    """Block-sparse RCS assembly: the pair and camera reductions of
+    assemble_rcs_dense without the densify. Returns (blocks, diag):
+
+      blocks [2P, 81] = [-H_up; -H_up'] (the transpose as a column
+        permutation, done here once per stage2), or with symmetric=True
+        the [P, 81] strict-pair half table -H_up, which the matvecs and
+        bsr_pack_from_half read in both directions;
+      diag [N, 9, 9] = per-camera diagonal blocks + lam I (also the
+        SCHUR_JACOBI preconditioner).
+
+    The deferred jacobi pose scale is applied at the [P, 81] level."""
+    P9 = POSE_SIZE
+    N = num_cameras
+    Hup = pair_outer_stream(strip_a, strip_b, buckets, pairs)
+    diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
+                       * pose_scale.repeat(1, P9))
+    eye = torch.eye(P9, dtype=diag81.dtype, device=diag81.device)
+    diag = diag81.reshape(N, P9, P9) + lam * eye
+    if symmetric:
+        return _scale_neg_chunked(Hup, pose_scale, pairs.pair_row,
+                                  pairs.pair_col), diag
+    P = Hup.shape[0]
+    perm_t = _block_transpose(Hup.device)
+    blocks2 = Hup.new_empty((2 * P, P9 * P9))
+    for a in range(0, P, _FILL_CHUNK_ROWS):
+        b = min(P, a + _FILL_CHUNK_ROWS)
+        rows = Hup[a:b] * _pair_scale(pose_scale, pairs.pair_row[a:b],
+                                      pairs.pair_col[a:b])
+        blocks2[a:b] = -rows
+        blocks2[P + a:P + b] = -rows[:, perm_t]
+    return blocks2, diag
+
+
+def bsr_pack_from_half(half: torch.Tensor,
+                       bsr: BsrMatvecIndex) -> torch.Tensor:
+    """Run-major packed [R*W, 81] table from the strict-pair half table
+    [P, 81]: entries with blk_idx >= P take the same pair's block
+    transposed (a column permutation), pad entries (blk_idx = 2P) zeros.
+    Filled chunk by chunk into one preallocated output."""
+    P = half.shape[0]
+    E = bsr.blk_idx.shape[0]
+    perm_t = _block_transpose(half.device)
+    out = half.new_empty((E, POSE_SIZE * POSE_SIZE))
+    for a in range(0, E, _FILL_CHUNK_ROWS):
+        b = min(E, a + _FILL_CHUNK_ROWS)
+        bi = bsr.blk_idx[a:b]
+        tr = bi >= P
+        rows = _take_fill(half, torch.where(tr, bi - P, bi))
+        out[a:b] = torch.where(tr[:, None], rows[:, perm_t], rows)
+    return out
+
+
+def bsr_symmetric_fits(bsr: BsrMatvecIndex, itemsize: int,
+                       max_pack_bytes: int) -> bool:
+    """True when the packed run-major table would exceed the byte
+    budget: stage2 then keeps the [P, 81] half table and CG runs
+    bsr_matvec_sym. Decided once, from the index's shape."""
+    return bsr.blk_idx.shape[0] * 81 * itemsize > max_pack_bytes
+
+
+def bsr_build_table(half: torch.Tensor, bsr: BsrMatvecIndex,
+                    symmetric: bool) -> torch.Tensor:
+    """stage2's BSR table: the half table itself in the symmetric regime,
+    its packed run-major expansion otherwise (once per stage2, so the
+    [2P, 81] both-direction form never exists)."""
+    return half if symmetric else bsr_pack_from_half(half, bsr)
+
+
+def _bsr_apply(diag, bsr: BsrMatvecIndex, x, chunk_products):
+    """y = diag x + the off-diagonal sum: chunk_products(a, b, xg) gives
+    the [(b-a)*W, 9] block products of the entries of runs a..b against
+    their gathered x rows xg; runs sum over their W entries, cameras
+    over their runs (idx2)."""
+    P9 = POSE_SIZE
+    R, W = bsr.shape2d
+    chunk = max(1, min(R, _MATVEC_CHUNK_ENTRIES // W))
+    # the zero rows that the pads read: col_idx = N, idx2 = R
+    xe = torch.cat([x, x.new_zeros((1, P9))], dim=0)
+    rsum = x.new_zeros((R + 1, P9))
+    for a in range(0, R, chunk):
+        b = min(R, a + chunk)
+        xg = xe.index_select(0, bsr.col_idx[a * W:b * W])
+        rsum[a:b] = chunk_products(a, b, xg).reshape(b - a, W, P9).sum(
+            dim=1)
+    y_off = _level2_reduce(rsum, bsr.idx2)
+    return torch.sum(diag * x[:, None, :], dim=2) + y_off
+
+
+def bsr_matvec_packed(packed: torch.Tensor, diag: torch.Tensor,
+                      bsr: BsrMatvecIndex, x: torch.Tensor) -> torch.Tensor:
+    """y = H x with the packed run-major table: each chunk of runs reads
+    its table rows as a slice (no block gather), multiplies them with
+    the gathered x rows, and sums."""
+    P9 = POSE_SIZE
+    W = bsr.width
+
+    def products(a, b, xg):
+        Hb = packed[a * W:b * W].reshape(-1, P9, P9)
+        return torch.sum(Hb * xg[:, None, :], dim=2)
+
+    return _bsr_apply(diag, bsr, x, products)
+
+
+def bsr_matvec_sym(half: torch.Tensor, diag: torch.Tensor,
+                   bsr: BsrMatvecIndex, x: torch.Tensor) -> torch.Tensor:
+    """y = H x against the half table [P, 81]: entries with blk_idx >= P
+    are the transpose direction and contract the gathered block
+    transposed. The same gathered bytes as the [2P, 81] table, twice the
+    products, half the resident table."""
+    P9 = POSE_SIZE
+    P = half.shape[0]
+    W = bsr.width
+
+    def products(a, b, xg):
+        bi = bsr.blk_idx[a * W:b * W]
+        tr = bi >= P
+        Hm = _take_fill(half, torch.where(tr, bi - P, bi)).reshape(
+            -1, P9, P9)
+        prod_s = torch.sum(Hm * xg[:, None, :], dim=2)  # H x
+        prod_t = torch.sum(Hm * xg[:, :, None], dim=1)  # H' x
+        return torch.where(tr[:, None], prod_t, prod_s)
+
+    return _bsr_apply(diag, bsr, x, products)
+
+
+def bsr_table_matvec(table: torch.Tensor, diag: torch.Tensor,
+                     bsr: BsrMatvecIndex, symmetric: bool):
+    """The CG operator over a bsr_build_table result."""
+    if symmetric:
+        return lambda x: bsr_matvec_sym(table, diag, bsr, x)
+    return lambda x: bsr_matvec_packed(table, diag, bsr, x)

@@ -11,11 +11,13 @@ mapping: stage1 = linearize+scale (linearizor_qr.cpp:78-138), stage2 =
 damp+RHS+precond (:141-265), matvec = right_multiply
 (linearization_qr.hpp:823-825), apply = back_substitute (:267-291).
 
-Two CG operators are ported: 'dense' (the explicit reduced camera
+Three CG operators are ported: 'dense' (the explicit reduced camera
 system, assembled once per stage2 through kernels K1 and K2, solved by
-kernel K3 when it is small enough or by pcg on dense GEMVs) and
-'implicit' (matrix-free, the reference's own). 'bsr' and the
-pair-gather variants of the JAX package are not ported yet.
+kernel K3 when it is small enough or by pcg on dense GEMVs), 'bsr' (the
+same system's camera-pair blocks only, assembled through K1 and K2, pcg
+on the block-sparse operator) and 'implicit' (matrix-free, the
+reference's own). The pair-gather variants of the JAX package are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -33,12 +35,17 @@ from rootba_tpu_torch.solver.cg import pcg
 from rootba_tpu_torch.solver.explicit_sc import sc_matvec_dense
 from rootba_tpu_torch.solver.linearization import (
     POSE_SIZE,
+    BsrMatvecIndex,
     CamState,
     CamStreamIndex,
     PairStreamIndex,
     _broadcast_lm,
     _map_rows,
+    assemble_rcs_bsr,
     assemble_rcs_dense,
+    bsr_build_table,
+    bsr_symmetric_fits,
+    bsr_table_matvec,
     cam_gram_stream,
     cam_reduce_stream,
     gather_cam_planes,
@@ -311,6 +318,19 @@ def flat_assemble_rcs(lin: FlatLin, stage2: FlatStage2, pairs, num_cameras,
                               buckets, lin.pose_scale, diag81)
 
 
+def flat_assemble_rcs_bsr(lin: FlatLin, stage2: FlatStage2, pairs,
+                          num_cameras, buckets, cam_strips,
+                          symmetric=False):
+    """Block-sparse form of flat_assemble_rcs (the same H, no densify):
+    (blocks [2P, 81], diag [N, 9, 9]), or with symmetric=True the
+    [P, 81] strict-pair half table (see linearization.assemble_rcs_bsr).
+    """
+    W = _rcs_factors(lin, stage2, buckets)
+    diag81 = _cached_diag81(lin, W, buckets, cam_strips)
+    return assemble_rcs_bsr(W, W, pairs, stage2.lam, num_cameras, buckets,
+                            lin.pose_scale, diag81, symmetric=symmetric)
+
+
 def flat_matvec(lin: FlatLin, stage2: FlatStage2, buckets, num_cameras,
                 x: torch.Tensor) -> torch.Tensor:
     """y = [(Q2'Jp)'(Q2'Jp) + lam I] x (right_multiply,
@@ -423,14 +443,10 @@ class FlatSqrtLinearizer(LinearizerBase):
                 mode = "dense"
             else:
                 mode = "bsr"
-        if mode == "bsr":
-            raise NotImplementedError(
-                f"sqrt_rcs_mode='bsr' ({N} cameras > dense_rcs_max_cameras"
-                f"={opts.dense_rcs_max_cameras}) is not ported yet "
-                f"(ROADMAP.md, queue 1: BSR mode)")
-        if mode not in ("dense", "implicit"):
+        if mode not in ("dense", "implicit", "bsr"):
             raise ValueError(f"unknown sqrt_rcs_mode {mode!r}")
         self.explicit_rcs = mode == "dense"
+        self.bsr_rcs = mode == "bsr"
         # whole-loop CG kernel K3, gated as in the JAX package: float32,
         # dense mode, and the padded system within 12 MB (N <= 128) or
         # forced with pallas_cg='on' (the option keeps its name)
@@ -441,7 +457,9 @@ class FlatSqrtLinearizer(LinearizerBase):
                               and (small or opts.pallas_cg == "on"))
         self.pairs = None
         self.cam_strips = None
-        if self.explicit_rcs:
+        self.bsr = None
+        self.bsr_sym = False
+        if self.explicit_rcs or self.bsr_rcs:
             if opts.pair_gather != "stream":
                 raise NotImplementedError(
                     f"pair_gather={opts.pair_gather!r} (and the W-free "
@@ -463,14 +481,27 @@ class FlatSqrtLinearizer(LinearizerBase):
             )
 
             host_buckets = self.bp.buckets
-            self.pairs = PairStreamIndex.from_host(
-                build_pair_stream(host_buckets, N,
-                                  grid_n=Nc if self.use_cg_kernel else None,
-                                  dense_grid=True),
-                host_buckets, self.device)
+            # BSR mode builds no [G*G] dense block maps (at 3,068 cameras
+            # each would hold 9.4M entries)
+            pairs_host = build_pair_stream(
+                host_buckets, N, grid_n=Nc if self.use_cg_kernel else None,
+                dense_grid=self.explicit_rcs)
+            self.pairs = PairStreamIndex.from_host(pairs_host, host_buckets,
+                                                   self.device)
             self.cam_strips = CamStreamIndex.from_host(
                 build_cam_stream(host_buckets, N), host_buckets,
                 self.device)
+            if self.bsr_rcs:
+                from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
+
+                self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
+                    pairs_host.pair_row, pairs_host.pair_col, N),
+                    self.device)
+                # the half table when the packed one would exceed the
+                # budget
+                self.bsr_sym = bsr_symmetric_fits(
+                    self.bsr, itemsize,
+                    int(opts.bsr_pack_max_gb * (1 << 30)))
 
     def error(self, cams, lm_ps):
         from rootba_tpu_torch.solver.linearization import (
@@ -485,45 +516,63 @@ class FlatSqrtLinearizer(LinearizerBase):
             cams, lm_ps, self.buckets, self.robust_norm, self.huber,
             self.options.use_projection_validity_check(), self.jacobi_eps,
             self.options.jacobi_scaling, self.num_cameras,
-            cam_strips=self.cam_strips, with_gram=self.explicit_rcs)
+            cam_strips=self.cam_strips,
+            with_gram=self.explicit_rcs or self.bsr_rcs)
 
     def stage2(self, lins: FlatLin, lam: torch.Tensor):
         N = self.num_cameras
-        if not self.explicit_rcs:
+        if not (self.explicit_rcs or self.bsr_rcs):
             return flat_stage2(lins, self.buckets, lam, N,
                                precond_jacobi=self.precond_jacobi,
                                precond_diagonal=self.precond_diag), None
         # explicit RCS: assemble H once, then CG is dense GEMVs (or the
-        # K3 kernel); SCHUR_JACOBI blocks are H's diagonal (free),
-        # forced-JACOBI keeps stage2's own Jp'Jp block pass
+        # K3 kernel) or block-sparse products; SCHUR_JACOBI blocks are
+        # H's diagonal (free), forced-JACOBI keeps stage2's own Jp'Jp
+        # block pass
         stage2 = flat_stage2(lins, self.buckets, lam, N,
                              precond_jacobi=self.precond_jacobi,
                              with_precond=self.precond_jacobi,
                              cam_strips=self.cam_strips)
-        Hz, diag = flat_assemble_rcs(lins, stage2, self.pairs, N,
-                                     self.buckets, self.cam_strips)
+        if self.bsr_rcs:
+            # always the strict-pair half table (scaled and negated in
+            # place), expanded here to the packed table when it fits, so
+            # the [2P, 81] form never exists. The index goes in as an
+            # argument: eager PyTorch traces nothing, so no index is
+            # captured as a program constant (the JAX package's stage2
+            # captures it in a closure, sqrt_flat.py:904 there).
+            half, diag = flat_assemble_rcs_bsr(
+                lins, stage2, self.pairs, N, self.buckets, self.cam_strips,
+                symmetric=True)
+            H = bsr_build_table(half, self.bsr, self.bsr_sym)
+        else:
+            H, diag = flat_assemble_rcs(lins, stage2, self.pairs, N,
+                                        self.buckets, self.cam_strips)
         if not self.precond_jacobi:
             if self.precond_diag:
                 diag = diag * torch.eye(P9, dtype=diag.dtype,
                                         device=diag.device)
             stage2 = stage2._replace(precond_chol=chol9(diag))
-        return stage2, Hz
+        return stage2, ((H, diag) if self.bsr_rcs else H)
 
     def lsolve(self, lins: FlatLin, aux):
         opts = self.options
-        stage2, Hz = aux
+        stage2, H = aux
         if self.use_cg_kernel:
             from rootba_tpu_torch.ops.cg_dense import pcg_dense
 
             res = pcg_dense(
-                Hz, stage2.precond_chol, stage2.b,
+                H, stage2.precond_chol, stage2.b,
                 min_num_iterations=opts.min_linear_solver_iterations,
                 max_num_iterations=opts.max_linear_solver_iterations,
                 q_tolerance=float(opts.eta), r_tolerance=-1.0)
         else:
-            if self.explicit_rcs:
+            if self.bsr_rcs:
+                table, diag = H
+                matvec = bsr_table_matvec(table, diag, self.bsr,
+                                          self.bsr_sym)
+            elif self.explicit_rcs:
                 def matvec(x):
-                    return sc_matvec_dense(Hz, x)
+                    return sc_matvec_dense(H, x)
             else:
                 def matvec(x):
                     return flat_matvec(lins, stage2, self.buckets,

@@ -107,6 +107,7 @@ def test_cli_help_and_dump_config(capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "--device" in out and "--dense-rcs-max-cameras" in out
+    assert "--bsr-pack-max-gb" in out
     assert run_app("test", ["--dump-config", "--use-double", "false",
                             "--no-jacobi-scaling"]) == 0
     out = capsys.readouterr().out
@@ -161,8 +162,46 @@ def test_unported_routes_raise(synthetic_problem):
 
     bp = bucketize(synthetic_problem)
     cpu = torch.device("cpu")
-    for kw in (dict(sqrt_rcs_mode="bsr"), dict(pair_gather="strips"),
+    for kw in (dict(pair_gather="strips"),
+               dict(sqrt_rcs_mode="bsr", pair_gather="obs"),
                dict(kernel_layout="einsum"),
                dict(solver_type=SolverType.SCHUR_COMPLEMENT)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_linearizer(bp, SolverOptions(**kw), torch.float64, cpu)
+
+
+@pytest.mark.parametrize("argv,symmetric", [
+    (["--sqrt-rcs-mode", "bsr"], False),
+    (["--sqrt-rcs-mode", "bsr", "--bsr-pack-max-gb", "0"], True),
+    (["--dense-rcs-max-cameras", "4"], False)])
+def test_cli_cpu_runs_bsr_mode(tmp_path, monkeypatch, argv, symmetric):
+    """BSR mode through the CLI on the CPU: asked for, with the half
+    table (--bsr-pack-max-gb 0), and picked by 'auto' above
+    --dense-rcs-max-cameras; every linear solve goes through the
+    block-sparse operator of the regime asked for."""
+    from rootba_tpu_torch.cli.bal import run_app
+    from rootba_tpu_torch.solver import sqrt_flat
+
+    regimes = []
+    real = sqrt_flat.bsr_table_matvec
+
+    def spy(table, diag, bsr, sym):
+        regimes.append(sym)
+        return real(table, diag, bsr, sym)
+
+    monkeypatch.setattr(sqrt_flat, "bsr_table_matvec", spy)
+    bal = _write_problem(tmp_path / "problem.txt")
+    cwd = os.getcwd()
+    try:
+        rc = run_app("test", ["-C", str(tmp_path), "--input", str(bal),
+                              "--device", "cpu", "--max-num-iterations",
+                              "3", "--init-depth-threshold", "0.1",
+                              "--quiet", *argv])
+    finally:
+        os.chdir(cwd)
+    assert rc == 0
+    log = json.loads((tmp_path / "ba_log.json").read_text())
+    assert len(log["cost"]) == 4 and log["cost"][-1] < log["cost"][0]
+    assert regimes and set(regimes) == {symmetric}
+    assert len(regimes) == sum(1 for n in log["linear_solver_iterations"]
+                               if n > 0)

@@ -502,6 +502,18 @@ def test_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_bsr_matvecs_match_cpu_on_card():
+    """The BSR table build and both block-sparse CG operators
+    (bsr_matvec_packed, bsr_matvec_sym) on the card against the port on
+    the CPU from the same inputs, f32 and f64: chip_smoke.check_bsr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    import chip_smoke
+
+    chip_smoke.check_bsr(torch.device("cuda"))
+
+
+@pytest.mark.cuda
 def test_k3_plan_matches_kernel_on_card():
     """k3_plan's capacity formula equals the cluster kernel's own check
     (rb_pcg_dense_cluster_plan in csrc/cg_dense.cu) at every N up to
