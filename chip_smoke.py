@@ -12,7 +12,9 @@ full-row cluster CG kernel), trafalgar-126 (the half cluster CG kernel),
 trafalgar-257 (above the CG kernels' gate; and once more with
 pallas_cg="on", the grid CG kernel) and final-3068 (above
 dense_rcs_max_cameras: the block-sparse RCS, BSR mode; in float64 also
-with the half table and in dense mode, which must agree) --
+with the half table and in dense mode, which must agree, and in float32
+also with the implicit operator; every K1/K2 call of one float32 and
+one float64 BSR solve held against the kernel's twin) --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -35,6 +37,7 @@ build/chip_smoke/ (listed in .gitignore).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -785,6 +788,104 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
     return log, launches, {k: v / 1e3 for k, v in us.items()}
 
 
+# runs of K1's plain twin per chunk in k1_held: bounds its [runs, K9,
+# K9] product at final-3068's largest calls
+HELD_CHUNK_RUNS = 1 << 16
+
+
+def k1_held(s1, s2, W: int, got, what: str) -> float:
+    """K1's result `got` for (s1, s2, W) against fold_plain on the same
+    inputs, chunk of runs by chunk: the W'W sums cancel, so each entry
+    is held to the sum of its products' magnitudes (W*K terms summed in
+    another order: 1e-5 of it in f32, 1e-12 in f64). Returns the max
+    abs error."""
+    import torch
+
+    from rootba_tpu_torch.ops import fold
+
+    tol = 1e-5 if s1.dtype == torch.float32 else 1e-12
+    worst = 0.0
+    for r in range(0, got.shape[0], HELD_CHUNK_RUNS):
+        a = s1[r * W:(r + HELD_CHUNK_RUNS) * W]
+        c = s2[r * W:(r + HELD_CHUNK_RUNS) * W]
+        diff = (got[r:r + HELD_CHUNK_RUNS].double()
+                - fold.fold_plain(a, c, W).double()).abs()
+        scale = fold.fold_plain(a.abs(), c.abs(), W).double()
+        err = float(diff.max())
+        check(bool((diff <= tol * scale + 1e-30).all()),
+              f"K1 {what} (M={s1.shape[0]} K={s1.shape[1] // 9} W={W}): "
+              f"max abs err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def k2_held(q, jp, n: int, got, what: str) -> float:
+    """K2's result against w_build_plain on the same inputs: products
+    and sum rounded separately in both, so equal bits."""
+    from rootba_tpu_torch.ops import fold
+
+    err = max_abs(got, fold.w_build_plain(q, jp, n))
+    check(err == 0.0, f"K2 {what} (L={q.shape[0]} n={n}): max abs err "
+                      f"{err}")
+    return err
+
+
+class TwinCheck:
+    """While an untimed solve runs, holds the result of every K1 and K2
+    call against the kernel's plain twin on the same inputs (k1_held,
+    k2_held) and keeps, per kernel, the calls checked, the largest
+    call's shape and the largest error."""
+
+    def __init__(self):
+        from rootba_tpu_torch.ops import fold
+
+        self.fold = fold
+        self.orig = {k: getattr(fold, k) for k in ("outer81_fold",
+                                                   "w_build")}
+        self.stats = {k: dict(calls=0, largest="", max_abs_err=0.0)
+                      for k in self.orig}
+        self._size = dict.fromkeys(self.orig, -1)
+
+    def _note(self, name, size, shape, err):
+        st = self.stats[name]
+        st["calls"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if size > self._size[name]:
+            self._size[name] = size
+            st["largest"] = shape
+
+    def _k1(self, s1, s2, width):
+        out = self.orig["outer81_fold"](s1, s2, width)
+        self._note("outer81_fold", s1.numel(),
+                   f"M={s1.shape[0]} K={s1.shape[1] // 9} W={width}",
+                   k1_held(s1, s2, width, out, str(s1.dtype)))
+        return out
+
+    def _k2(self, q, jp, n):
+        out = self.orig["w_build"](q, jp, n)
+        self._note("w_build", q.numel(), f"L={q.shape[0]} n={n}",
+                   k2_held(q, jp, n, out, str(q.dtype)))
+        return out
+
+    def __enter__(self):
+        self.fold.outer81_fold = self._k1
+        self.fold.w_build = self._k2
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.orig.items():
+            setattr(self.fold, k, f)
+        return False
+
+    def report(self, tag: str) -> str:
+        for k, st in self.stats.items():
+            check(st["calls"] > 0, f"{tag}: no {k} call was checked")
+        return "; ".join(f"{k} {st['calls']} calls, largest "
+                         f"{st['largest']}, max abs err "
+                         f"{st['max_abs_err']:.3e}"
+                         for k, st in self.stats.items())
+
+
 def k1_row(rec: "Recorder", errs: dict) -> dict:
     """K1 at its largest main-path call, in f32 (the working precision
     of the traced paths) and, as *_f64 keys, in f64 (the default CLI's
@@ -802,17 +903,8 @@ def k1_row(rec: "Recorder", errs: dict) -> dict:
                shape=f"M={M} K={K9 // 9} W={W} {str(s1.dtype)[6:]}")
     for dt, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
         a, c = s1.to(dt), s2.to(dt)
-        ref = fold.fold_plain(a, c, W)
-        got = fold.outer81_fold(a, c, W)
-        err = max_abs(got, ref)
-        # the W'W sums cancel: hold the error against the sum of the
-        # products' magnitudes (W*K terms, reordered: 1e-5 of it in f32,
-        # 1e-12 in f64)
-        tol = 1e-5 if dt == torch.float32 else 1e-12
-        scale = fold.fold_plain(a.abs(), c.abs(), W)
-        check(bool(((got.double() - ref.double()).abs()
-                    <= tol * scale.double() + 1e-30).all()),
-              f"K1 {dt} at main-path inputs: max abs err {err}")
+        err = k1_held(a, c, W, fold.outer81_fold(a, c, W),
+                      f"{dt} at main-path inputs")
         a3 = a.view(R, W * K9 // 9, 9)
         b3 = c.view(R, W * K9 // 9, 9)
         # the operations bound takes the f32 peak in both precisions;
@@ -839,10 +931,7 @@ def k2_row(rec: "Recorder", errs: dict) -> dict:
 
     _, (q, jp, n), _ = rec.largest["w_build"]
     S = q.shape[0] * n
-    ref = fold.w_build_plain(q, jp, n)
-    got = fold.w_build(q, jp, n)
-    err = max_abs(got, ref)
-    check(err == 0.0, f"K2 at main-path inputs: {err}")
+    err = k2_held(q, jp, n, fold.w_build(q, jp, n), "at main-path inputs")
     q3 = q.view(S, 2, 3)
     j3 = jp.view(S, 2, 9)
     return dict(
@@ -1095,15 +1184,18 @@ def bsr_operator_rows(system: dict, smi: str) -> list:
                   cameras=N, pairs=half.shape[0], entries=table.shape[0],
                   width=bsr.width)
     rows = []
-    try:
+    xf = x.reshape(-1)
+    try:  # a torch build without the sparse BSR product on the card
         A = bsr_library_matrix(half, diag, pr, pc)
-        xf = x.reshape(-1)
-        lib_err = held(torch.mv(A, xf).view(N, 9), "library BSR product")
-        lib = both("library_ms", lambda: torch.mv(A, xf), 20)
-    except (RuntimeError, NotImplementedError) as e:
+        y_lib = torch.mv(A, xf)
+    except NotImplementedError as e:
+        A = None
         lib_err, lib = None, {"library_ms": None,
                               "library_error": str(e)[:200]}
-    A = None
+    if A is not None:
+        lib_err = held(y_lib.view(N, 9), "library BSR product")
+        lib = both("library_ms", lambda: torch.mv(A, xf), 20)
+    A = y_lib = None
     nb = nbytes(table, bsr.col_idx, bsr.idx2, diag, x) + y_bytes
     rows.append(dict(name="bsr_matvec_packed", **common, bytes=nb,
                      **bound(nb, 2 * 81 * (table.shape[0] + N)),
@@ -1258,16 +1350,26 @@ def main() -> int:
     print(f"[phase 7] final-3068 twin f32 (BSR, packed table), 5 LM "
           f"iterations: {f_it:.4f} s per LM iteration (iteration times "
           f"{[round(x, 4) for x in fs['iteration_s']]}), CLI wall "
-          f"{wall:.3f} s, minimizer {fs['minimizer_s']:.3f} s, cost "
-          f"{fs['initial_cost']:.6f} -> {fs['final_cost']:.6f}, CG "
+          f"{wall:.3f} s, minimizer {fs['minimizer_s']:.3f} s, costs "
+          f"{fl['cost']}, CG "
           f"iterations per attempt {fs['cg_iters']}, stage seconds "
           f"{fs['stage_s']}, launches {n7}, peak device memory "
           f"{peak7 / 2**20:.1f} MiB ({held / 2**20:.1f} MiB of it held "
           f"by this script before the solve)", flush=True)
+    # K1 and K2 held against their twins at this path's own shapes (pair
+    # sub-streams and buckets up to width 1024), in an untimed solve
+    with TwinCheck() as tw32:
+        run_cli(final, 1, "final3068_twins")
+    print(f"[phase 7] final-3068 twin f32, 1 untimed LM iteration with "
+          f"every kernel call held against its twin: "
+          f"{tw32.report('final3068 f32')}", flush=True)
+    for k, st in tw32.stats.items():
+        errs[k] = max(errs[k], st["max_abs_err"])
 
     # phase 7b: the same twin in f64, 3 LM iterations, in BSR mode with
     # the packed table, with the half table, and in dense mode: the same
-    # accept/reject flags and costs to rel 1e-8 between every two
+    # accept/reject flags and costs to rel 1e-8 between every two; the
+    # BSR packed run holds every K1/K2 call against its twin
     f64_modes = {"bsr": ((), {False}),
                  "bsr_sym": (("--bsr-pack-max-gb", "0"), {True}),
                  "dense": (("--dense-rcs-max-cameras", "4096"), set())}
@@ -1275,10 +1377,16 @@ def main() -> int:
     for mode, (extra, regimes) in f64_modes.items():
         torch.cuda.reset_peak_memory_stats()
         t = time.monotonic()
-        with RouteSpy() as spy:
+        with RouteSpy() as spy, (TwinCheck() if mode == "bsr"
+                                 else contextlib.nullcontext()) as tw:
             lg = run_cli(final, 3, f"final3068_f64_{mode}", extra,
                          use_double=True)
         wall = time.monotonic() - t
+        if tw is not None:
+            tw64 = tw
+            print(f"[phase 7b] final-3068 twin f64 {mode}, every kernel "
+                  f"call held against its twin (so its CLI wall is not "
+                  f"comparable): {tw.report('final3068 f64')}", flush=True)
         check(set(spy.regimes) == regimes
               and (not regimes or len(spy.regimes)
                    == len(lg["iteration_time"]) - 1),
@@ -1304,7 +1412,36 @@ def main() -> int:
                   f"{f64[b]['step_is_successful']}, costs rel {rel})")
             print(f"[phase 7b] {a} vs {b}: identical accept/reject, costs "
                   f"within rel {rel:.2e} (tol 1e-8)", flush=True)
-    f64 = None
+    # phase 7's timed f32 BSR solve over the first 3 iterations against
+    # an f32 solve with the implicit operator (no reduced camera system,
+    # so none of BSR mode's code) at rel 1e-4 (phase 5's f32 tolerance),
+    # and against the f64 BSR solve at rel 2e-3 (the f32 CG-amplified
+    # tolerance of tests/test_torch_solve.py): at this twin every f32
+    # mode, the implicit one too, sits up to 1.55e-3 from f64 (PERF.md,
+    # PR 4 call 4); the same accept/reject flags in each pair
+    with RouteSpy() as spy:
+        imp = run_cli(final, 3, "final3068_f32_implicit",
+                      ("--sqrt-rcs-mode", "implicit"))
+    check(not spy.regimes, f"final3068 f32 implicit: BSR linear solves "
+                           f"{spy.regimes}")
+    summarize_log(imp, "final3068_f32_implicit")
+    print(f"[phase 7b] final-3068 twin f32 implicit, 3 LM iterations: "
+          f"costs {imp['cost']}, CG iterations "
+          f"{imp['linear_solver_iterations'][1:]}", flush=True)
+    for what, ref, tol in (("f32 implicit", imp, 1e-4),
+                           ("f64 bsr", f64["bsr"], 2e-3)):
+        n = len(ref["cost"])
+        rel = max(abs(x - y) / abs(y) for x, y in zip(fl["cost"][:n],
+                                                      ref["cost"]))
+        check(fl["step_is_successful"][:n] == ref["step_is_successful"]
+              and len(fl["cost"]) >= n and rel < tol,
+              f"final3068: f32 BSR costs {fl['cost'][:n]} (accepted "
+              f"{fl['step_is_successful'][:n]}) against {what} "
+              f"{ref['cost']} ({ref['step_is_successful']}): rel {rel}")
+        print(f"[phase 7b] f32 bsr (phase 7) vs {what} over {n - 1} "
+              f"iterations: identical accept/reject, costs within rel "
+              f"{rel:.2e} (tol {tol:g})", flush=True)
+    f64 = imp = ref = None
 
     # phase 6: the counted solve of each path, under a trace: the launch
     # counts set to 0 just before it and read just after
@@ -1349,6 +1486,13 @@ def main() -> int:
     # K3 at the pallas_cg="on" trafalgar-257 path's
     attempts = {p: len(lg["iteration_time"]) - 1 for p, lg in logs.items()}
     rows = [k1_row(rec_t, errs), k2_row(rec_t, errs)]
+    # the final-3068 path's every call, checked in phases 7 and 7b
+    for r in rows[:2]:
+        st32, st64 = tw32.stats[r["name"]], tw64.stats[r["name"]]
+        r["final3068_checked"] = {"float32": st32, "float64": st64}
+        if "max_abs_err_f64" in r:
+            r["max_abs_err_f64"] = max(r["max_abs_err_f64"],
+                                       st64["max_abs_err"])
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,

@@ -396,7 +396,8 @@ def _level2_reduce(rows: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class BsrMatvecIndex:
     """Device copy of bucketing.BsrMatvec: blk_idx / col_idx flat
-    [R*width] (pads 2P and N), idx2 [N, vmax] (pad R)."""
+    [R*width] (pads 2P and N), idx2 [N, vmax] (pad R); int32, as on the
+    host, so that each matvec reads half the index bytes of int64."""
 
     blk_idx: torch.Tensor
     col_idx: torch.Tensor
@@ -410,13 +411,11 @@ class BsrMatvecIndex:
     @staticmethod
     def from_host(bm, device) -> "BsrMatvecIndex":
         def up(a):
-            return torch.as_tensor(np.asarray(a, np.int64).reshape(-1),
-                                   device=device)
+            return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
         return BsrMatvecIndex(
-            blk_idx=up(bm.blk_idx), col_idx=up(bm.col_idx),
-            idx2=torch.as_tensor(np.asarray(bm.idx2, np.int64),
-                                 device=device),
+            blk_idx=up(bm.blk_idx).reshape(-1),
+            col_idx=up(bm.col_idx).reshape(-1), idx2=up(bm.idx2),
             width=int(np.asarray(bm.blk_idx).shape[1]))
 
 

@@ -94,7 +94,7 @@ def test_build_bsr_matvec_matches_jax(seed, N, P, width):
         np.testing.assert_array_equal(a, b, err_msg=name)
     R, W = idx.shape2d
     assert W == host_j.blk_idx.shape[1]
-    assert idx.blk_idx.shape == (R * W,) and idx.blk_idx.dtype == torch.int64
+    assert idx.blk_idx.shape == (R * W,) and idx.blk_idx.dtype == torch.int32
     # sentinels: blk 2P and col N together, every real entry once
     pad = idx.blk_idx == 2 * P
     assert torch.equal(pad, idx.col_idx == N)
@@ -430,7 +430,7 @@ def test_pair_free_problem_bsr_equals_dense(synthetic_problem, dtype,
     assert lin.pairs.num_pairs == 0
     R, W = lin.bsr.shape2d
     assert (R, W) == (1, 8)
-    assert torch.equal(lin.bsr.blk_idx, torch.zeros(8, dtype=torch.int64))
+    assert torch.equal(lin.bsr.blk_idx, torch.zeros(8, dtype=torch.int32))
     half = torch.zeros((0, 81), dtype=torch.float64)
     assert tlz.bsr_build_table(half, lin.bsr, True).shape == (0, 81)
     packed = tlz.bsr_build_table(half, lin.bsr, False)
