@@ -14,7 +14,10 @@ pallas_cg="on", the grid CG kernel) and final-3068 (above
 dense_rcs_max_cameras: the block-sparse RCS, BSR mode; in float64 also
 with the half table and in dense mode, which must agree, and in float32
 also with the implicit operator; every K1/K2 call of one float32 and
-one float64 BSR solve held against the kernel's twin) --
+one float64 BSR solve held against the kernel's twin) and final-4585
+(above fused_obs_threshold: the host LM driver; in float64 the BSR half
+table and the fused-W stream factors, held to the attempt loop with the
+packed table and W tables; float32 timed and held to float64) --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -72,6 +75,14 @@ TWINS = {
     # final4585 knobs: above dense_rcs_max_cameras, so the block-sparse
     # RCS (BSR mode, packed table)
     "final3068": dict(num_cams=3068, num_lms=310854, num_obs=1653812,
+                      structure="clustered", track_sigma=1.1,
+                      window_stretch=3.0, p_far=0.03,
+                      max_window_frac=0.08),
+    # BAL's final problem-4585-1324582-9125125 with the final4585 knobs:
+    # above fused_obs_threshold (the host LM driver); in float64 its
+    # packed table passes bsr_pack_max_gb (the half table) and its W
+    # tables _FUSED_W_MIN_BYTES (the fused-W stream factors)
+    "final4585": dict(num_cams=4585, num_lms=1324582, num_obs=9125125,
                       structure="clustered", track_sigma=1.1,
                       window_stretch=3.0, p_far=0.03,
                       max_window_frac=0.08),
@@ -556,7 +567,10 @@ class Recorder:
         return False
 
 
-def write_twin(name: str, seed: int = 17) -> Path:
+def write_twin(name: str, seed: int = 17, npz: bool = False) -> Path:
+    """The seeded twin as a BAL text file, or with npz as the port's
+    .npz problem file (bal/problem.py's load_npz; seconds to write and
+    read where the text of 9M observations takes minutes)."""
     from rootba_tpu_torch.bal.synthetic import (
         generate_synthetic_bal,
         write_bal_file,
@@ -567,8 +581,11 @@ def write_twin(name: str, seed: int = 17) -> Path:
     p = generate_synthetic_bal(num_cams=cams, num_lms=lms,
                                mean_obs_per_lm=obs / lms, pixel_noise=1.0,
                                seed=seed, **t)
-    path = WORK / f"problem-{cams}-{lms}-twin.txt"
-    write_bal_file(p, str(path))
+    path = WORK / f"problem-{cams}-{lms}-twin.{'npz' if npz else 'txt'}"
+    if npz:
+        p.save_npz(str(path))
+    else:
+        write_bal_file(p, str(path))
     return path
 
 
@@ -612,10 +629,18 @@ def summarize_log(d: dict, tag: str) -> dict:
                     "residual_evaluation_time")})
 
 
-# the CG operators of phase 5's small solves: the default (dense RCS),
-# and BSR mode with the packed and with the half table
-SMALL_MODES = {"dense": {}, "bsr": dict(sqrt_rcs_mode="bsr"),
-               "bsr_sym": dict(sqrt_rcs_mode="bsr", bsr_pack_max_gb=0.0)}
+# phase 5's small solves: (options, sqrt_flat globals patched,
+# precisions) of each: the default (dense RCS), BSR mode with the packed
+# and with the half table, the host LM driver, and BSR mode with the
+# fused-W stream factors
+SMALL_MODES = {
+    "dense": ({}, {}, (True, False)),
+    "bsr": (dict(sqrt_rcs_mode="bsr"), {}, (True, False)),
+    "bsr_sym": (dict(sqrt_rcs_mode="bsr", bsr_pack_max_gb=0.0), {},
+                (True, False)),
+    "host": (dict(lm_loop="host"), {}, (True,)),
+    "bsr_fused_w": (dict(sqrt_rcs_mode="bsr"), dict(_FUSED_W_MIN_BYTES=0),
+                    (True, False))}
 
 
 def small_cross_check() -> None:
@@ -625,10 +650,11 @@ def small_cross_check() -> None:
     cost to rel 1e-4."""
     from rootba_tpu_torch.bal.synthetic import generate_synthetic_bal
     from rootba_tpu_torch.config.options import SolverOptions
+    from rootba_tpu_torch.solver import sqrt_flat
     from rootba_tpu_torch.solver.lm import bundle_adjust
 
-    for mode, kw in SMALL_MODES.items():
-        for use_double in (True, False):
+    for mode, (kw, globs, precisions) in SMALL_MODES.items():
+        for use_double in precisions:
             out = {}
             for dev in ("cuda", "cpu"):
                 p = generate_synthetic_bal(num_cams=12, num_lms=200,
@@ -641,7 +667,14 @@ def small_cross_check() -> None:
                                      max_num_iterations=20,
                                      initial_trust_region_radius=10.0,
                                      function_tolerance=1e-5, **kw)
-                s = bundle_adjust(p, opts, device=dev)
+                with patched(sqrt_flat, **globs), LoopSpy() as loops, \
+                        FactorSpy() as factors:
+                    s = bundle_adjust(p, opts, device=dev)
+                check(loops.loops == [kw.get("lm_loop", "fused")]
+                      and set(factors.kinds) == {
+                          "fused" if globs else "tables"},
+                      f"small {mode} solve on {dev}: LM loop "
+                      f"{loops.loops}, W factors {set(factors.kinds)}")
                 out[dev] = ([i.cost.all.error for i in s.iterations],
                             [i.step_is_successful for i in s.iterations],
                             [i.linear_solver_iterations
@@ -845,6 +878,17 @@ class TwinCheck:
         self.stats = {k: dict(calls=0, largest="", max_abs_err=0.0)
                       for k in self.orig}
         self._size = dict.fromkeys(self.orig, -1)
+        # host seconds of the checks, each from a drained queue
+        self.seconds = 0.0
+
+    def _held(self, fn, *args) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        err = fn(*args)
+        self.seconds += time.monotonic() - t
+        return err
 
     def _note(self, name, size, shape, err):
         st = self.stats[name]
@@ -858,13 +902,13 @@ class TwinCheck:
         out = self.orig["outer81_fold"](s1, s2, width)
         self._note("outer81_fold", s1.numel(),
                    f"M={s1.shape[0]} K={s1.shape[1] // 9} W={width}",
-                   k1_held(s1, s2, width, out, str(s1.dtype)))
+                   self._held(k1_held, s1, s2, width, out, str(s1.dtype)))
         return out
 
     def _k2(self, q, jp, n):
         out = self.orig["w_build"](q, jp, n)
         self._note("w_build", q.numel(), f"L={q.shape[0]} n={n}",
-                   k2_held(q, jp, n, out, str(q.dtype)))
+                   self._held(k2_held, q, jp, n, out, str(q.dtype)))
         return out
 
     def __enter__(self):
@@ -877,13 +921,18 @@ class TwinCheck:
             setattr(self.fold, k, f)
         return False
 
-    def report(self, tag: str) -> str:
+    def report(self, tag: str, expect=("outer81_fold", "w_build")) -> str:
+        """The checks' summary; fails unless exactly the kernels in
+        `expect` were called."""
         for k, st in self.stats.items():
-            check(st["calls"] > 0, f"{tag}: no {k} call was checked")
+            check((st["calls"] > 0) == (k in expect),
+                  f"{tag}: {st['calls']} {k} calls checked, expected "
+                  f"{'some' if k in expect else 'none'}")
         return "; ".join(f"{k} {st['calls']} calls, largest "
                          f"{st['largest']}, max abs err "
                          f"{st['max_abs_err']:.3e}"
-                         for k, st in self.stats.items())
+                         for k, st in self.stats.items()) + (
+            f"; {self.seconds:.3f} s of checks")
 
 
 def k1_row(rec: "Recorder", errs: dict) -> dict:
@@ -1103,6 +1152,118 @@ class RouteSpy:
         return False
 
 
+@contextlib.contextmanager
+def patched(mod, **values):
+    """Module globals set to `values` while the block runs."""
+    old = {k: getattr(mod, k) for k in values}
+    for k, v in values.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
+
+
+class LoopSpy:
+    """While a solve runs, records which LM driver ran each solve:
+    "host" (solver/lm.optimize_lm) or "fused" (the attempt loop,
+    solver/fused_lm.optimize_lm_fused)."""
+
+    def __init__(self):
+        from rootba_tpu_torch.solver import fused_lm, lm
+
+        self.loops = []
+        self.targets = ((lm, "optimize_lm", "host"),
+                        (fused_lm, "optimize_lm_fused", "fused"))
+        self.orig = [getattr(m, k) for m, k, _ in self.targets]
+
+    def _spy(self, fn, tag):
+        def wrapped(*a, **kw):
+            self.loops.append(tag)
+            return fn(*a, **kw)
+        return wrapped
+
+    def __enter__(self):
+        for (m, k, tag), fn in zip(self.targets, self.orig):
+            setattr(m, k, self._spy(fn, tag))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, k, _), fn in zip(self.targets, self.orig):
+            setattr(m, k, fn)
+        return False
+
+
+class FactorSpy:
+    """While a solve runs, records the kind of the W factors of each
+    reduced-camera-system assembly: "fused" (StreamFactors: W rows built
+    after each slot gather) or "tables" (W tables built by K2)."""
+
+    def __init__(self):
+        from rootba_tpu_torch.solver import sqrt_flat
+
+        self.mod = sqrt_flat
+        self.orig = sqrt_flat._rcs_factors
+        self.kinds = []
+
+    def _spy(self, *a):
+        from rootba_tpu_torch.solver.linearization import StreamFactors
+
+        out = self.orig(*a)
+        self.kinds.append("fused" if isinstance(out, StreamFactors)
+                          else "tables")
+        return out
+
+    def __enter__(self):
+        self.mod._rcs_factors = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._rcs_factors = self.orig
+        return False
+
+
+def check_fused_w(dev) -> None:
+    """Fused-W rows (built after the slot gather from the gathered Q1h
+    and Jp rows, solver/linearization._gather_slot_rows) on the card
+    against the same on the CPU and against K2 run on the gathered rows
+    (n = 1): equal bits, pads included (the gather's zero row)."""
+    import numpy as np
+    import torch
+
+    from rootba_tpu_torch.ops import fold
+    from rootba_tpu_torch.solver.linearization import (
+        _gather_slot_rows,
+        _slot_table,
+    )
+
+    rng = np.random.default_rng(9)
+    L, n = 4000, 6
+    for dtype in (torch.float32, torch.float64):
+        q = torch.as_tensor(rng.normal(size=(L, n * 6)), dtype=dtype)
+        jp = torch.as_tensor(rng.normal(size=(L, n * 18)), dtype=dtype)
+        # slot ids, every 97th the fill sentinel L*n
+        idx = torch.as_tensor(rng.integers(0, L * n, size=65536))
+        idx[::97] = L * n
+        rows = {}
+        for d in ("cpu", dev):
+            tab = _slot_table((q.to(d), jp.to(d)), n)
+            rows[d] = _gather_slot_rows(tab, idx.to(d))
+        k2 = fold.w_build(_slot_table(q.to(dev), n)[idx.to(dev)],
+                          _slot_table(jp.to(dev), n)[idx.to(dev)], 1)
+        pads = idx == L * n
+        check(bool(pads.any()) and not rows[dev][pads.to(dev)].any(),
+              f"fused-W rows {dtype}: pad rows not zero")
+        for what, other in (("cpu", rows["cpu"]), ("K2 n=1", k2.cpu())):
+            err = max_abs(rows[dev].cpu(), other)
+            check(err == 0.0, f"fused-W rows {dtype} on the card vs "
+                              f"{what}: max abs err {err}")
+        print(f"[phase 2] fused-W rows {str(dtype)[6:]}: {idx.numel()} "
+              f"gathered slots ({int(pads.sum())} pads), card equal to "
+              f"the CPU and to K2 at n = 1", flush=True)
+
+
 def dense_from_half(half, diag, pr, pc):
     """The dense z-space system Hz[a*N+i, b*N+j] = block(i,j)[a,b] that
     the dense mode would assemble for the same blocks: each pair's block
@@ -1226,6 +1387,180 @@ def bsr_operator_rows(system: dict, smi: str) -> list:
     return rows
 
 
+def final4585_phase() -> dict:
+    """Phase 8: the final-4585 twin (9.1M observations, above
+    fused_obs_threshold) through the CLI's main path and the routes it
+    selects, each run with the launch counts set to 0 just before it and
+    read just after. Returns, for the kernel table, the launch counts and
+    attempts of 8a and 8c, and 8a's twin checks (TwinCheck.stats)."""
+    import copy
+
+    import torch
+
+    from rootba_tpu_torch.bal.problem import load_normalized_bal_problem
+    from rootba_tpu_torch.cli.common import parse_bal_app_arguments
+    from rootba_tpu_torch.log.ba_log import build_log_dict
+    from rootba_tpu_torch.ops import kernels
+    from rootba_tpu_torch.solver import sqrt_flat
+    from rootba_tpu_torch.solver.lm import bundle_adjust
+
+    t = time.monotonic()
+    big = write_twin("final4585", npz=True)
+    print(f"[phase 8] final-4585 twin written ({big.stat().st_size / 1e6:.1f}"
+          f" MB npz) in {time.monotonic() - t:.1f} s", flush=True)
+    counts = {}
+
+    def route(tag, log, loops, spy, factors, n, loop, sym, kind, k2):
+        attempts = len(log["iteration_time"]) - 1
+        check(loops.loops == [loop], f"{tag}: LM loops {loops.loops}")
+        check(len(spy.regimes) == attempts and set(spy.regimes) == {sym},
+              f"{tag}: linear solves by regime (True = half table) "
+              f"{spy.regimes}, {attempts} attempts")
+        check(len(factors.kinds) == attempts
+              and set(factors.kinds) == {kind},
+              f"{tag}: W factors {factors.kinds}")
+        for k in n:
+            want = k == "outer81_fold" or (k == "w_build" and k2)
+            check((n[k] > 0) == want, f"{tag}: kernel {k} launched "
+                                      f"{n[k]} times {n}")
+        return attempts
+
+    def held(what, log, ref, tol, cg=True) -> float:
+        """log's costs within rel tol of ref's over ref's iterations,
+        with the same accept/reject flags (and CG counts)."""
+        k = len(ref["cost"])
+        rel = max(abs(x - y) / abs(y) for x, y in zip(log["cost"][:k],
+                                                      ref["cost"]))
+        check(len(log["cost"]) >= k and rel < tol
+              and log["step_is_successful"][:k] == ref["step_is_successful"]
+              and (not cg or log["linear_solver_iterations"][:k]
+                   == ref["linear_solver_iterations"]),
+              f"final4585: {what}: costs {log['cost'][:k]}, accepted "
+              f"{log['step_is_successful'][:k]}, CG "
+              f"{log['linear_solver_iterations'][:k]} against "
+              f"{ref['cost']}, {ref['step_is_successful']}, "
+              f"{ref['linear_solver_iterations']}: rel {rel} (tol {tol:g})")
+        return rel
+
+    def readout(tag, log, wall, peak, wall_of="CLI"):
+        s = summarize_log(log, tag)
+        per_it = sum(s["iteration_s"]) / len(s["iteration_s"])
+        return (f"{per_it:.4f} s per LM iteration (iteration times "
+                f"{[round(x, 4) for x in s['iteration_s']]}), {wall_of} "
+                f"wall {wall:.3f} s, minimizer {s['minimizer_s']:.3f} s, "
+                f"costs {log['cost']}, accepted "
+                f"{log['step_is_successful']}, CG iterations "
+                f"{s['cg_iters']}, stage seconds "
+                f"{s['stage_s']}, peak device memory "
+                f"{peak / 2**20:.1f} MiB")
+
+    # 8a: float64, default options, 2 LM iterations through run_app: the
+    # host LM driver, the half table and the fused-W factors, so K1 and
+    # no K2; every K1 call held against its twin
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.monotonic()
+    with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
+            TwinCheck() as tw:
+        la = run_cli(big, 2, "final4585_f64", use_double=True)
+    wall = time.monotonic() - t
+    n = dict(kernels.LAUNCHES)
+    peak_a = torch.cuda.max_memory_allocated()
+    attempts = route("final4585 f64", la, loops, spy, factors, n, "host",
+                     True, "fused", False)
+    counts["final4585_f64"] = (n, attempts)
+    print(f"[phase 8a] final-4585 twin f64, default options (host LM "
+          f"driver, BSR half table, fused-W), 2 LM iterations with every "
+          f"K1 call held against its twin (the times include the checks):"
+          f" {readout('final4585_f64', la, wall, peak_a)}, launches {n}; "
+          f"{tw.report('final4585 f64', expect=('outer81_fold',))}",
+          flush=True)
+
+    # 8b: the same problem in float64 through the routes that the
+    # final-3068 phases check: the attempt loop, the packed table and W
+    # tables by K2, in process on the problem as the CLI loads it
+    parsed = parse_bal_app_arguments("chip smoke", [
+        "--input", str(big), "--quiet", *PREPROCESS])
+    options = parsed[0]
+    t = time.monotonic()
+    problem = load_normalized_bal_problem(options.dataset)
+    load_s = time.monotonic() - t
+    opts = copy.deepcopy(options.solver)
+    opts.use_double, opts.max_num_iterations = True, 2
+    opts.function_tolerance, opts.verbosity_level = 0.0, 1
+    opts.lm_loop, opts.bsr_pack_max_gb = "fused", 64.0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.monotonic()
+    with patched(sqrt_flat, _FUSED_W_MIN_BYTES=1 << 62), LoopSpy() as loops, \
+            RouteSpy() as spy, FactorSpy() as factors:
+        lb = build_log_dict(bundle_adjust(copy.deepcopy(problem), opts,
+                                          device="cuda"))
+    wall = time.monotonic() - t
+    n = dict(kernels.LAUNCHES)
+    peak_b = torch.cuda.max_memory_allocated()
+    route("final4585 f64 packed", lb, loops, spy, factors, n, "fused",
+          False, "tables", True)
+    rb = readout("final4585_f64_packed", lb, wall, peak_b, "bundle_adjust")
+    print(f"[phase 8b] final-4585 twin f64, attempt loop, BSR packed "
+          f"table, W tables (K2), 2 LM iterations (loaded in "
+          f"{load_s:.3f} s): {rb}, launches {n}", flush=True)
+    check(len(lb["cost"]) == len(la["cost"]), "final4585: 8b's length")
+    rel = held("f64 packed route vs the default route", lb, la, 1e-8)
+    print(f"[phase 8b] default route vs packed route: identical "
+          f"accept/reject and CG counts, costs within rel {rel:.2e} (tol "
+          f"1e-8); peak device memory {peak_a / 2**20:.1f} MiB (half "
+          f"table, fused-W, twin checks) vs {peak_b / 2**20:.1f} MiB "
+          f"(packed, W tables)", flush=True)
+
+    # 8d: 8a's route once more in process, without the twin checks, so
+    # that its times and peak are the route's own
+    opts = copy.deepcopy(options.solver)
+    opts.use_double, opts.max_num_iterations = True, 2
+    opts.function_tolerance, opts.verbosity_level = 0.0, 1
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.monotonic()
+    with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
+        ld = build_log_dict(bundle_adjust(problem, opts, device="cuda"))
+    wall = time.monotonic() - t
+    n = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    route("final4585 f64 timed", ld, loops, spy, factors, n, "host", True,
+          "fused", False)
+    check(len(ld["cost"]) == len(la["cost"]), "final4585: 8d's length")
+    rel = held("f64 in process vs the CLI", ld, la, 1e-8)
+    rd = readout("final4585_f64_timed", ld, wall, peak, "bundle_adjust")
+    print(f"[phase 8d] final-4585 twin f64, default options in process, "
+          f"no twin checks, 2 LM iterations: {rd}, launches {n}; against "
+          f"8a: identical accept/reject and CG counts, costs within rel "
+          f"{rel:.2e} (tol 1e-8)", flush=True)
+    problem = None
+
+    # 8c: float32, default options, 3 LM iterations, timed: the host LM
+    # driver, the packed table and W tables, so K1 and K2
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.monotonic()
+    with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
+        lc = run_cli(big, 3, "final4585_f32")
+    wall = time.monotonic() - t
+    n = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    attempts = route("final4585 f32", lc, loops, spy, factors, n, "host",
+                     False, "tables", True)
+    counts["final4585"] = (n, attempts)
+    print(f"[phase 8c] final-4585 twin f32, default options (host LM "
+          f"driver, BSR packed table, W tables), 3 LM iterations: "
+          f"{readout('final4585_f32', lc, wall, peak)}, launches {n}",
+          flush=True)
+    rel = held("f32 vs f64", lc, la, 2e-3, cg=False)
+    print(f"[phase 8c] f32 vs f64 (8a) over {len(la['cost']) - 1} "
+          f"iterations: identical accept/reject, costs within rel "
+          f"{rel:.2e} (tol 2e-3)", flush=True)
+    return counts, tw.stats
+
+
 def main() -> int:
     import torch
 
@@ -1243,12 +1578,23 @@ def main() -> int:
           flush=True)
     WORK.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
+    last = [t0]
+
+    def lap(phase: str) -> None:
+        now = time.monotonic()
+        print(f"[{phase}] phase wall {now - last[0]:.1f} s (run so far "
+              f"{now - t0:.1f} s)", flush=True)
+        last[0] = now
+
     kernels.build_all(verbose=True)
     print(f"[phase 1] built {', '.join(kernels.SOURCES)} in "
           f"{time.monotonic() - t0:.1f} s (parallel nvcc)", flush=True)
 
+    lap("phase 1")
     errs = check_kernels(dev)
     check_bsr(dev)
+    check_fused_w(dev)
+    lap("phase 2")
 
     # phases 3 and 4 drive each path untraced: a recording solve (which
     # keeps the kernels' main-path inputs for the timing phase) and, for
@@ -1272,6 +1618,8 @@ def main() -> int:
           f"{LADYBUG_TPU_FINAL_COST}); CG iterations {ls['cg_iters']}; "
           f"stage seconds {ls['stage_s']}", flush=True)
 
+    lap("phase 3")
+
     # phase 3b: trafalgar-126 twin, f32, 5 LM iterations: below the K3
     # gate but above the full-row kernel's capacity, so the half kernel
     mid = write_twin("trafalgar126")
@@ -1289,6 +1637,8 @@ def main() -> int:
           f"parent tree on the card: {TRAFALGAR126_CARD_FINAL_COST}), CG "
           f"iterations {ms_['cg_iters']}, stage seconds {ms_['stage_s']}",
           flush=True)
+
+    lap("phase 3b")
 
     # phase 4: trafalgar-257 twin, f32, 5 LM iterations; above the K3
     # gate, so CG runs pcg on dense GEMVs
@@ -1309,6 +1659,8 @@ def main() -> int:
           f"({held / 2**20:.1f} MiB of it held by this script before "
           f"the solve)", flush=True)
 
+    lap("phase 4")
+
     # phase 4b: the trafalgar-257 twin with pallas_cg="on", f32, 3 LM
     # iterations (the third's K3 call crosses the residual reset): K3
     # above the gate (Nc = 384), so the grid kernel
@@ -1322,7 +1674,10 @@ def main() -> int:
           f"{on['final_cost']:.6f}, CG iterations {on['cg_iters']}",
           flush=True)
 
+    lap("phase 4b")
+
     small_cross_check()
+    lap("phase 5")
 
     # phase 7: the final-3068 twin, f32, default options, 5 LM
     # iterations: above dense_rcs_max_cameras, so BSR mode with the
@@ -1365,6 +1720,8 @@ def main() -> int:
           f"{tw32.report('final3068 f32')}", flush=True)
     for k, st in tw32.stats.items():
         errs[k] = max(errs[k], st["max_abs_err"])
+
+    lap("phase 7")
 
     # phase 7b: the same twin in f64, 3 LM iterations, in BSR mode with
     # the packed table, with the half table, and in dense mode: the same
@@ -1442,6 +1799,10 @@ def main() -> int:
               f"iterations: identical accept/reject, costs within rel "
               f"{rel:.2e} (tol {tol:g})", flush=True)
     f64 = imp = ref = None
+    lap("phase 7b")
+
+    phase8, tw4585 = final4585_phase()
+    lap("phase 8")
 
     # phase 6: the counted solve of each path, under a trace: the launch
     # counts set to 0 just before it and read just after
@@ -1470,6 +1831,7 @@ def main() -> int:
         print(f"[phase 6] {path}: {iters} LM iterations, launches {n}, "
               f"device ms summed over the solve "
               f"{ {k: round(v, 5) for k, v in ms.items()} }", flush=True)
+    lap("phase 6")
     rel = abs(logs["ladybug"]["cost"][-1] / LADYBUG_CARD_FINAL_COST - 1)
     check(rel < 1e-4, f"ladybug: final cost {logs['ladybug']['cost'][-1]} "
                       f"is rel {rel} from {LADYBUG_CARD_FINAL_COST}")
@@ -1486,13 +1848,16 @@ def main() -> int:
     # K3 at the pallas_cg="on" trafalgar-257 path's
     attempts = {p: len(lg["iteration_time"]) - 1 for p, lg in logs.items()}
     rows = [k1_row(rec_t, errs), k2_row(rec_t, errs)]
-    # the final-3068 path's every call, checked in phases 7 and 7b
+    # the final-3068 path's every call, checked in phases 7 and 7b, and
+    # the final-4585 f64 path's (8a: K1 only)
     for r in rows[:2]:
         st32, st64 = tw32.stats[r["name"]], tw64.stats[r["name"]]
         r["final3068_checked"] = {"float32": st32, "float64": st64}
+        r["final4585_checked"] = {"float64": tw4585[r["name"]]}
         if "max_abs_err_f64" in r:
             r["max_abs_err_f64"] = max(r["max_abs_err_f64"],
-                                       st64["max_abs_err"])
+                                       st64["max_abs_err"],
+                                       tw4585[r["name"]]["max_abs_err"])
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,
@@ -1500,14 +1865,18 @@ def main() -> int:
     rows.append(k3_row("pcg_dense_grid", rec_on.largest["pcg_dense"], errs,
                        on_k3, compare_grid=False))
     # launches and summed device time per LM attempt, from each path's
-    # counted solve
+    # counted solve; phase 8's final-4585 runs (8c in f32, 8a in f64)
+    # add their launches per attempt (counted, not traced)
+    attempts.update({p: a for p, (_, a) in phase8.items()})
     for r in rows:
         k = r["name"]
         r["launches_by_path"] = {p: n[k] for p, (n, _) in paths.items()}
+        r["launches_by_path"].update(
+            {p: n[k] for p, (n, _) in phase8.items()})
         r["launches"] = sum(r["launches_by_path"].values())
         r["attempts_by_path"] = attempts
         r["launches_per_attempt_by_path"] = {
-            p: n[k] / attempts[p] for p, (n, _) in paths.items()}
+            p: v / attempts[p] for p, v in r["launches_by_path"].items()}
         r["ms_per_attempt_by_path"] = {
             p: ms[k] / attempts[p] for p, (_, ms) in paths.items()}
         r["card"] = smi
@@ -1516,6 +1885,7 @@ def main() -> int:
                       f"(bound {r['bound_ms']:.5f}, plain "
                       f"{r['plain_ms']:.5f}), trace {r['ms_trace']}"
                       for r in rows), flush=True)
+    lap("timing")
     ops = bsr_operator_rows(final_spy.system, smi)
     final_spy.system.clear()
     print(json.dumps({"bsr_operators": ops}))

@@ -1,4 +1,5 @@
-"""The LM driver: Levenberg-Marquardt as a host loop over attempts.
+"""The attempt-loop LM driver (up to fused_obs_threshold observations;
+solver/lm.optimize_lm is the host driver above it).
 
 Port of the JAX package's `solver/fused_lm.py`, whose whole minimization
 is one device program (a `lax.while_loop` over LM attempts). Here the

@@ -4,9 +4,11 @@ Port of the parts of the JAX package's `solver/linearization.py` that
 its main path runs: the camera state and bucket index, row chunking,
 the packed camera table, the cost evaluation, the stream indices with
 their reducers (pair products, per-camera grams and sums) feeding the
-dense reduced camera system (`assemble_rcs_dense`), and the
-block-sparse form of that system with its CG operators (`BsrMatvecIndex`,
-`assemble_rcs_bsr`, `bsr_build_table`, `bsr_table_matvec`).
+dense reduced camera system (`assemble_rcs_dense`), the fused-W
+factors those reducers take above the W-table budget (`StreamFactors`),
+and the block-sparse form of that system with its CG operators
+(`BsrMatvecIndex`, `assemble_rcs_bsr`, `bsr_build_table`,
+`bsr_table_matvec`).
 
 Index tensors are uploaded once as int64. The stream indices address
 slot rows of a bucket's landmark tables; their fill sentinel (the
@@ -15,9 +17,9 @@ one zero row appended to the gathered table, and run ids padded to the
 pair (camera) count land in an extra row of the output that is dropped.
 
 Counterparts that collapse here: the JAX package's per-sub-stream
-slicing and padding (`_stream_sub_tables`, `_pad_stack_rows`) and its
-slot gather (`_gather_slot_rows`) become one gather from the bucket's
-slot table with slot ids made global at upload; its strips dispatchers
+slicing and padding (`_stream_sub_tables`, `_pad_stack_rows`) become
+one gather from the bucket's slot table (`_gather_slot_rows`) with slot
+ids made global at upload; its strips dispatchers
 (`cam_reduce_strips`, `cam_gram_strips`, `csr_pair_outer_strips`) only
 route to the stream reducers on this path, so callers call those
 directly; `_outer81_fold` / `_outer81_fold_chunked` are
@@ -228,12 +230,48 @@ class CamStreamIndex:
             run_cam=tuple(rc))
 
 
-def _slot_table(t: torch.Tensor, n: int) -> torch.Tensor:
+class StreamFactors(NamedTuple):
+    """Lazy W = Q1h x Jp factor tables for the stream reducers: the
+    slot rows W27[o, c*9+a] = sum_r q[o, r*3+c] jp[o, r*9+a] are built
+    after each slot gather (`_gather_slot_rows`), so that no [slots, 27]
+    W table exists. Per bucket: q [L, n*6], jp [L, n*18]."""
+
+    q: tuple
+    jp: tuple
+
+
+def _first_table(t) -> torch.Tensor:
+    """The first per-bucket tensor of a reducer side (per-bucket tables
+    or StreamFactors): the dtype and device of the reduction (the JAX
+    package's `_table_dtype`)."""
+    return t.q[0] if isinstance(t, StreamFactors) else t[0]
+
+
+def _factor_tables(t):
+    """Per-bucket tables of a reducer side: the tables themselves, or
+    the (q, jp) pair of each bucket of a StreamFactors."""
+    return tuple(zip(t.q, t.jp)) if isinstance(t, StreamFactors) else t
+
+
+def _slot_table(t, n: int):
     """A bucket's [L, n*K] table as its [L*n + 1, K] slot table; the
-    appended zero row is what the fill sentinel gathers."""
+    appended zero row is what the fill sentinel gathers. A (q, jp) pair
+    gives the pair of slot tables."""
+    if isinstance(t, tuple):
+        return tuple(_slot_table(x, n) for x in t)
     K = t.shape[1] // n
     flat = t.reshape(-1, K)
     return torch.cat([flat, flat.new_zeros((1, K))], dim=0)
+
+
+def _gather_slot_rows(table, idx: torch.Tensor) -> torch.Tensor:
+    """Slot rows of a slot table at idx, or, from a (q, jp) pair of slot
+    tables, the W rows of those slots built after the gather (the r = 0
+    term plus the r = 1 term, as K2's twin; zero rows at the pads)."""
+    if isinstance(table, tuple):
+        q6, jp18 = table
+        return fold.w_build_plain(q6[idx], jp18[idx], 1)
+    return table[idx]
 
 
 def pair_outer_stream(strip_a, strip_b, buckets: Sequence[BucketIndex],
@@ -243,19 +281,22 @@ def pair_outer_stream(strip_a, strip_b, buckets: Sequence[BucketIndex],
         out[p, a*9+b] = sum over slots of pair p of
                         sum_k strip_a[first, k*9+a] strip_b[second, k*9+b]
 
-    strip_a/strip_b are per-bucket tuples of [L_b, n_b*K*9] tables.
-    Each sub-stream's gathered slot rows go through K1 (ops.fold) and
-    its run rows are added into the [P+1, 81] table."""
+    strip_a/strip_b are per-bucket tuples of [L_b, n_b*K*9] tables or
+    StreamFactors. Each sub-stream's gathered slot rows go through K1
+    (ops.fold) and its run rows are added into the [P+1, 81] table."""
     same = strip_a is strip_b
     P = ps.num_pairs
-    out = strip_a[0].new_zeros((P + 1, 81))
+    out = _first_table(strip_a).new_zeros((P + 1, 81))
+    strip_a, strip_b = _factor_tables(strip_a), _factor_tables(strip_b)
     for t, bi in enumerate(ps.stream_bucket):
         n = buckets[bi].cam_idx.shape[1]
         fa = _slot_table(strip_a[bi], n)
         fb = fa if same else _slot_table(strip_b[bi], n)
         for wi, wj, rp in zip(ps.wi_idx[t], ps.wj_idx[t],
                               ps.run_pair[t]):
-            rows = fold.outer81_fold(fa[wi], fb[wj], ps.widths[t])
+            rows = fold.outer81_fold(_gather_slot_rows(fa, wi),
+                                     _gather_slot_rows(fb, wj),
+                                     ps.widths[t])
             out.index_add_(0, rp, rows)
     return out[:P]
 
@@ -265,21 +306,24 @@ def cam_gram_stream(terms, buckets: Sequence[BucketIndex],
     """Per-camera 81-wide gram sums over the CamStream index:
     out[c] = sum over obs slots of camera c of
              sum_terms sign * A_slot' B_slot (terms: [(A, B, sign)] of
-    per-bucket [L, n*K*9] tables); each fold is a K1 launch."""
+    per-bucket [L, n*K*9] tables or StreamFactors); each fold is a K1
+    launch."""
     N = cs.num_cameras
-    out = terms[0][0][0].new_zeros((N + 1, 81))
+    out = _first_table(terms[0][0]).new_zeros((N + 1, 81))
+    terms = [(_factor_tables(A), _factor_tables(B), sign, A is B)
+             for A, B, sign in terms]
     for t, bi in enumerate(cs.stream_bucket):
         n = buckets[bi].cam_idx.shape[1]
         tabs = []
-        for A, B, sign in terms:
+        for A, B, sign, same_t in terms:
             fa = _slot_table(A[bi], n)
-            tabs.append((fa, fa if A is B else _slot_table(B[bi], n),
-                         sign, A is B))
+            tabs.append((fa, fa if same_t else _slot_table(B[bi], n),
+                         sign, same_t))
         for w, rc in zip(cs.w_idx[t], cs.run_cam[t]):
             acc = None
             for fa, fb, sign, same_t in tabs:
-                si = fa[w]
-                sj = si if same_t else fb[w]
+                si = _gather_slot_rows(fa, w)
+                sj = si if same_t else _gather_slot_rows(fb, w)
                 g = fold.outer81_fold(si, sj, cs.width) * sign
                 acc = g if acc is None else acc + g
             out.index_add_(0, rc, acc)

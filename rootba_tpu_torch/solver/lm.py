@@ -1,16 +1,48 @@
-"""Solver state, the linearizer facade and `bundle_adjust`.
+"""Solver state, the linearizer facade, the host LM driver and
+`bundle_adjust`.
 
-Port of the parts of the JAX package's `solver/lm.py` the main path
-needs: the state (cameras + per-bucket landmark positions), the bucket
-index upload, a slim linearizer base, `create_linearizer` (SQUARE_ROOT
-on the flat layout) and `bundle_adjust`, which runs the attempt-loop LM
-driver (solver/fused_lm.py). `state_from_numpy` / `state_to_numpy`
-carry a state across the two packages as numpy arrays.
+Port of the JAX package's `solver/lm.py` for the main path: the state
+(cameras + per-bucket landmark positions), the bucket index upload,
+the linearizer base with the host driver's stage calls,
+`create_linearizer` (SQUARE_ROOT on the flat layout), the host LM loop
+`optimize_lm` and `bundle_adjust`, which routes a problem to it or to
+the attempt-loop driver (solver/fused_lm.py). `state_from_numpy` /
+`state_to_numpy` carry a state across the two packages as numpy arrays.
+
+The host loop keeps the reference minimizer's control flow
+(optimize_lm_ours, bal_bundle_adjustment.cpp:249-544): an outer loop
+per linearization point, backtracking attempts inside it that reuse the
+linearization, lambda *= max(1/3, 1 - (2 rho - 1)^3) on success and
+lambda *= vee on reject, and termination on the function tolerance,
+lambda > max_lambda or the iteration cap.
+
+Mapping of the JAX driver's device dispatches onto eager PyTorch: a
+"dispatch" is a run of stage calls with no host read; a "sync" is the
+one host read of an attempt's scalars. An attempt ("full" up to
+fused_obs_threshold observations, "half" above it) runs stage2, the
+linear solve, apply and the cost evaluation and syncs once; "half"
+also syncs after stage2 when defer_stage_sync is off. With
+defer_stage_sync, stage1 is not synced either and its failure count is
+read at the next attempt's sync. Every timing_calibration_interval-th
+attempt is a calibration attempt: solve, apply and the cost, each
+synced, as with host_fused_attempt=False. Every stage span is timed by
+CUDA events at the stage boundaries (fused_lm._StageClock), read after
+the sync that covers them, so no total is split by calibration
+fractions: every iteration has timing_attributed=False and measured
+stage fields, in every mode.
+
+Not ported: the JAX driver's capacity ladder (degrading "full" to
+"half" to separate dispatches on compile-size errors) and its transient
+retry of compile-service errors. Eager PyTorch compiles nothing, and
+its split modes allocate the same tensors, so a degrade after
+torch.cuda.OutOfMemoryError would fail again; every error propagates
+with its cause.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -23,11 +55,27 @@ from rootba_tpu_torch.bal.bucketing import (
 )
 from rootba_tpu_torch.bal.problem import BalProblem, PipelineTimingSummary
 from rootba_tpu_torch.config.options import (
+    OptimizedCost,
     RobustNorm,
     SolverOptions,
     SolverType,
 )
-from rootba_tpu_torch.log.summary import SolverSummary
+from rootba_tpu_torch.core.residuals import (
+    residual_info_from_values,
+    residual_info_to_host,
+    residual_info_vector,
+)
+from rootba_tpu_torch.log.summary import (
+    CONVERGENCE,
+    NO_CONVERGENCE,
+    IterationSummary,
+    ResidualInfoHost,
+    SolverSummary,
+    error_summary_oneline,
+    finish_iteration,
+    finish_solve,
+)
+from rootba_tpu_torch.solver.fused_lm import _cost_scalar, _StageClock
 from rootba_tpu_torch.solver.linearization import BucketIndex, CamState
 
 
@@ -84,17 +132,28 @@ def initial_state(bp: BucketedProblem, dtype: torch.dtype,
                             dtype, device)
 
 
+def _linearization_failure(failures: int) -> FloatingPointError:
+    return FloatingPointError(f"numerical failure during linearization "
+                              f"({failures} observations)")
+
+
 class LinearizerBase:
     """Facade of a manual solver (reference solver/linearizor.hpp:47-83).
 
-    A subclass's _build sets up its structures; it provides
+    A subclass's _build sets up its structures; it provides the stages
       error(cams, lm_ps) -> ResidualInfo
       stage1(cams, lm_ps) -> (lins, pose_scale, failures)
       stage2(lins, lam) -> aux          [damping/RHS/preconditioner/RCS]
       lsolve(lins, aux) -> (inc, stage2, cg_iters, cg_term)
       apply(cams, lm_ps, lins, stage2, pose_scale, inc)
           -> (cams, lm_ps, l_diff)
-    All run on `device`; nothing is compiled or cached between calls."""
+    All run on `device`; nothing is compiled or cached between calls.
+
+    The base adds the host driver's calls on the linearizer's own state
+    (set_state): linearize, solve, apply_inc (the JAX driver's `apply`;
+    here `apply` is the stage), compute_error and attempt, which count
+    the solver summary's linear solves and residual and Jacobian
+    evaluations and time the iteration's stage fields."""
 
     linear_solver_type = "?"
 
@@ -115,10 +174,232 @@ class LinearizerBase:
         # (CG dots, l_diff); f64 needs none
         self.compensated = (bool(options.compensated_accumulation)
                             and dtype == torch.float32)
+        self.state: Optional[BAState] = None
+        self.it_summary: Optional[IterationSummary] = None
+        self.summary: Optional[SolverSummary] = None
+        self._attempt_idx = -1
+        # stage1's failure count (a device scalar) and its clock and
+        # iteration, while a deferred linearize waits for the next sync
+        self._pending_failures: Optional[torch.Tensor] = None
+        self._pending_stage1 = None
+        # as in the JAX driver: the two-part attempt above the fused
+        # loop's observation threshold
+        self._attempt_mode = (
+            "full" if bp.num_observations <= options.fused_obs_threshold
+            else "half")
         self._build()
 
     def _build(self):
         raise NotImplementedError
+
+    # -- the host driver's calls ---------------------------------------
+    def set_state(self, state: BAState):
+        self.state = state
+
+    def start_iteration(self, it_summary: IterationSummary):
+        self.it_summary = it_summary
+
+    def finish_iteration(self):
+        pass
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _lam(self, lam: float) -> torch.Tensor:
+        # a fill on the device, not a host copy (which would sync)
+        return torch.full((), lam, dtype=self.dtype, device=self.device)
+
+    def _read(self, *scalars) -> list:
+        """One device->host transfer of scalars (device tensors or
+        Python numbers) as floats."""
+        return torch.stack([
+            v.to(self.device, torch.float64) if torch.is_tensor(v)
+            else torch.full((), float(v), dtype=torch.float64,
+                            device=self.device)
+            for v in scalars]).tolist()
+
+    def _note_solve(self, cg_iters: int, cg_term: int):
+        its = self.it_summary
+        if its is not None:
+            its.linear_solver_iterations = cg_iters
+            its.linear_solver_message = (f"cg_term={cg_term} "
+                                         f"iters={cg_iters}")
+            its.linear_solver_type = self.linear_solver_type
+        if self.summary is not None:
+            self.summary.num_linear_solves += 1
+
+    def _record_stage1(self, clock: _StageClock, its):
+        if its is not None:
+            its.stage1_time_in_seconds = clock.spans()["stage1"]
+            # the reference reports jacobian evaluation as the stage1
+            # body (linearizor_qr.cpp)
+            its.jacobian_evaluation_time_in_seconds = (
+                its.stage1_time_in_seconds)
+
+    def _consume_failures(self, failures: Optional[float] = None):
+        """After a sync: a deferred stage1's span into the iteration that
+        linearized, and its failure check (`failures`: the count read
+        with the attempt's scalars)."""
+        if self._pending_failures is None:
+            return
+        if failures is None:
+            failures = float(self._pending_failures)
+        clock, its = self._pending_stage1
+        self._pending_failures = self._pending_stage1 = None
+        if failures > 0:
+            raise _linearization_failure(int(failures))
+        self._record_stage1(clock, its)
+
+    def _defer_sync(self, upcoming_idx: Optional[int] = None) -> bool:
+        """True when stage1 (and a half attempt's stage2) should run
+        without a sync of its own (defer_stage_sync), except right
+        before a calibration attempt, which times every stage synced.
+        `upcoming_idx` is the index of the attempt that consumes the
+        stage; the default is the next attempt's."""
+        interval, defer = self.options.effective_timing()
+        if not (defer and self.options.host_fused_attempt):
+            return False
+        if upcoming_idx is None:
+            upcoming_idx = self._attempt_idx + 1
+        interval = max(interval, 0)
+        return not (interval and upcoming_idx % interval == 0)
+
+    def compute_error(self) -> ResidualInfoHost:
+        clock = _StageClock(self.device)
+        info = self.error(self.state.cams, self.state.lm_ps)
+        clock.lap("err")
+        ri = residual_info_to_host(info)
+        if self.it_summary is not None:
+            self.it_summary.residual_evaluation_time_in_seconds += (
+                clock.spans()["err"])
+        if self.summary is not None:
+            self.summary.num_residual_evaluations += 1
+        return ri
+
+    def linearize(self):
+        """stage1 at the current state; raises FloatingPointError when
+        it counts numerical failures (at the next sync when deferred)."""
+        its = self.it_summary
+        clock = _StageClock(self.device)
+        lins, pose_scale, failures = self.stage1(self.state.cams,
+                                                 self.state.lm_ps)
+        clock.lap("stage1")
+        if self._defer_sync():
+            self._pending_failures = failures
+            self._pending_stage1 = (clock, its)
+        else:
+            n = int(failures)
+            if n > 0:
+                raise _linearization_failure(n)
+            self._record_stage1(clock, its)
+        self._lins = lins
+        self._pose_scale = pose_scale
+        if self.summary is not None:
+            self.summary.num_jacobian_evaluations += 1
+
+    def solve(self, lam: float) -> torch.Tensor:
+        """stage2, synced, then the linear solve, synced (the reference
+        records them as separate spans, linearizor_qr.cpp:141-265)."""
+        clock = _StageClock(self.device)
+        aux = self.stage2(self._lins, self._lam(lam))
+        clock.lap("stage2")
+        self._sync()
+        self._consume_failures()
+        inc, stage2, cg_iters, cg_term = self.lsolve(self._lins, aux)
+        del aux  # the assembled system is not kept past its solve
+        clock.lap("lsolve")
+        cg_iters, cg_term = (int(v) for v in self._read(cg_iters, cg_term))
+        self._stage2 = stage2
+        spans = clock.spans()
+        if self.it_summary is not None:
+            self.it_summary.stage2_time_in_seconds = spans["stage2"]
+            self.it_summary.solve_reduced_system_time_in_seconds = (
+                spans["lsolve"])
+        self._note_solve(cg_iters, cg_term)
+        return inc
+
+    def apply_inc(self, inc: torch.Tensor) -> Tuple[BAState, float]:
+        """Back substitution and the pose update of the last solve's
+        increment, synced: (new state, l_diff)."""
+        clock = _StageClock(self.device)
+        cams, lm_ps, l_diff = self.apply(
+            self.state.cams, self.state.lm_ps, self._lins, self._stage2,
+            self._pose_scale, inc)
+        clock.lap("bsub")
+        l_diff = float(l_diff)
+        if self.it_summary is not None:
+            self.it_summary.back_substitution_time_in_seconds = (
+                clock.spans()["bsub"])
+        return BAState(cams=cams, lm_ps=lm_ps), l_diff
+
+    def attempt(self, lam: float):
+        """One LM backtracking attempt -- solve(lam), apply, the cost --
+        with one sync: (new_state, l_diff, ri2, inc_finite); the caller
+        decides whether to set_state(new_state). Every
+        timing_calibration_interval-th attempt runs the separately
+        synced calls instead (_attempt_calibrated)."""
+        self._attempt_idx += 1
+        interval = max(self.options.effective_timing()[0], 0)
+        if interval and self._attempt_idx % interval == 0:
+            return self._attempt_calibrated(lam)
+        return self._attempt_synced_once(lam)
+
+    def _attempt_synced_once(self, lam: float):
+        """The "full" attempt, or the "half" one, which also syncs after
+        stage2 unless deferred."""
+        clock = _StageClock(self.device)
+        aux = self.stage2(self._lins, self._lam(lam))
+        clock.lap("stage2")
+        if (self._attempt_mode == "half"
+                and not self._defer_sync(self._attempt_idx)):
+            self._sync()
+        inc, stage2, cg_iters, cg_term = self.lsolve(self._lins, aux)
+        del aux
+        inc_finite = torch.all(torch.isfinite(inc))
+        safe_inc = torch.where(inc_finite, inc, torch.zeros_like(inc))
+        clock.lap("lsolve")
+        cams2, lm_ps2, l_diff = self.apply(
+            self.state.cams, self.state.lm_ps, self._lins, stage2,
+            self._pose_scale, safe_inc)
+        clock.lap("bsub")
+        info2 = self.error(cams2, lm_ps2)
+        clock.lap("err")
+        # the attempt's one sync: cost, l_diff, finiteness, the CG count
+        # and termination, and a deferred stage1's failure count
+        pending = self._pending_failures
+        *v, l_diff, inc_finite, cg_iters, cg_term, failures = self._read(
+            *residual_info_vector(info2), l_diff, inc_finite, cg_iters,
+            cg_term, 0 if pending is None else pending)
+        self._consume_failures(failures)
+        spans = clock.spans()
+        its = self.it_summary
+        if its is not None:
+            its.stage2_time_in_seconds = spans["stage2"]
+            its.solve_reduced_system_time_in_seconds = spans["lsolve"]
+            its.back_substitution_time_in_seconds = spans["bsub"]
+            its.residual_evaluation_time_in_seconds += spans["err"]
+        self._note_solve(int(cg_iters), int(cg_term))
+        if self.summary is not None:
+            self.summary.num_residual_evaluations += 1
+        return (BAState(cams=cams2, lm_ps=lm_ps2), l_diff,
+                residual_info_from_values(v), bool(inc_finite))
+
+    def _attempt_calibrated(self, lam: float):
+        """attempt() through the separately synced calls; the state is
+        the pre-attempt one afterwards, also when a call raises."""
+        backup = self.state
+        try:
+            inc = self.solve(lam)
+            inc_finite = bool(torch.all(torch.isfinite(inc)))
+            if not inc_finite:
+                inc = torch.zeros_like(inc)
+            new_state, l_diff = self.apply_inc(inc)
+            self.set_state(new_state)
+            ri2 = self.compute_error()
+        finally:
+            self.set_state(backup)
+        return new_state, l_diff, ri2, inc_finite
 
 
 def create_linearizer(bp: BucketedProblem, options: SolverOptions,
@@ -134,6 +415,241 @@ def create_linearizer(bp: BucketedProblem, options: SolverOptions,
     from rootba_tpu_torch.solver.sqrt_flat import FlatSqrtLinearizer
 
     return FlatSqrtLinearizer(bp, options, dtype, device)
+
+
+def _function_tolerance_reached(it: IterationSummary,
+                                options: SolverOptions):
+    """Reference bal_bundle_adjustment.cpp:174-201."""
+    if options.optimized_cost == OptimizedCost.ERROR:
+        cost = it.cost.all.error
+        change = abs(it.cost_change.all.error)
+    else:
+        cost = it.cost.valid.error
+        change = abs(it.cost_change.valid.error)
+    if change <= options.function_tolerance * cost:
+        return True, (f"Function tolerance reached. |cost_change|/cost: "
+                      f"{change / cost if cost else 0.0} <= "
+                      f"{options.function_tolerance}")
+    return False, ""
+
+
+def optimize_lm(bp: BucketedProblem, options: SolverOptions,
+                summary: Optional[SolverSummary] = None, *,
+                device: torch.device, linearizer=None,
+                iteration_callback=None) -> Tuple[BAState, SolverSummary]:
+    """The host LM minimizer (reference optimize_lm_ours,
+    bal_bundle_adjustment.cpp:249-544) on `device`.
+
+    Pass `linearizer` to reuse one already built (the solve starts from
+    the problem's initial state). `iteration_callback(it, state,
+    summary)` fires after every LM iteration; an exception in it aborts
+    the solve."""
+    if summary is None:
+        summary = SolverSummary()
+    verbose = options.verbosity_level >= 2
+    timer_total = time.monotonic()
+    dtype = torch.float64 if options.use_double else torch.float32
+
+    min_lambda = 1.0 / options.max_trust_region_radius
+    max_lambda = 1.0 / options.min_trust_region_radius
+    vee_factor = options.vee_factor
+    initial_vee = options.initial_vee
+    max_lm_iter = options.max_num_iterations
+
+    lam = 1.0 / options.initial_trust_region_radius
+    lambda_vee = initial_vee
+
+    summary.num_linear_solves = 0
+    summary.num_residual_evaluations = 0
+    summary.num_jacobian_evaluations = 0
+
+    if linearizer is None:
+        linearizer = create_linearizer(bp, options, dtype, device)
+    linearizer.summary = summary
+    linearizer.set_state(initial_state(bp, dtype, device))
+
+    def iteration_done():
+        if iteration_callback is not None:
+            iteration_callback(it, linearizer.state, summary)
+
+    def close_iteration(its, timer_iteration, cum=None):
+        linearizer.finish_iteration()
+        its.trust_region_radius = 1.0 / lam
+        its.iteration_time_in_seconds = time.monotonic() - timer_iteration
+        its.cumulative_time_in_seconds = (
+            time.monotonic() - timer_total if cum is None else cum)
+        finish_iteration(summary, its)
+
+    summary.preprocessor_time_in_seconds = time.monotonic() - timer_total
+    timer_minimizer = time.monotonic()
+
+    validity_check = options.use_projection_validity_check()
+    # the attempt runs solve+apply+error with one sync (see
+    # LinearizerBase.attempt); the top-of-loop error is then the previous
+    # attempt's evaluation of the same state
+    use_attempt = bool(options.host_fused_attempt)
+    ri_cache: Optional[ResidualInfoHost] = None
+    terminated = False
+    it = 0
+    while it <= max_lm_iter and not terminated:
+        it_summary = IterationSummary(iteration=it)
+        linearizer.start_iteration(it_summary)
+        timer_iteration = time.monotonic()
+
+        if ri_cache is not None:
+            ri = ri_cache
+        else:
+            ri = linearizer.compute_error()
+            ri_cache = ri
+        if verbose:
+            print(f"Iteration {it}, "
+                  f"{error_summary_oneline(ri, validity_check)}")
+        if not ri.is_numerically_valid:
+            raise FloatingPointError(
+                "did not expect numerical failure during linearization")
+
+        if it == 0:
+            it_summary.cost = ri
+            it_summary.step_is_successful = True
+            it_summary.step_is_valid = True
+            close_iteration(it_summary, timer_iteration)
+            it += 1
+            iteration_done()
+            continue
+
+        linearizer.linearize()
+
+        j = 0
+        while it <= max_lm_iter and not terminated:
+            if j > 0:
+                if verbose:
+                    print(f"Iteration {it}, backtracking")
+                it_summary = IterationSummary(iteration=it)
+                linearizer.start_iteration(it_summary)
+                timer_iteration = time.monotonic()
+            j += 1
+
+            backup_state = linearizer.state
+            if use_attempt:
+                new_state, l_diff, ri2, inc_finite = linearizer.attempt(lam)
+            else:
+                inc = linearizer.solve(lam)
+                inc_finite = bool(torch.all(torch.isfinite(inc)))
+
+            if not inc_finite:
+                it_summary.step_is_valid = False
+                it_summary.step_is_successful = False
+                if verbose:
+                    print(f"\t[Invalid] Numeric issues when computing "
+                          f"increment (contains NaNs), lambda: {lam:.1e}")
+                lam = lambda_vee * lam
+                lambda_vee *= vee_factor
+                close_iteration(it_summary, timer_iteration)
+                it += 1
+                iteration_done()
+                if lam > max_lambda:
+                    terminated = True
+                    summary.termination_type = NO_CONVERGENCE
+                    summary.message = (
+                        f"Solver did not converge and reached maximum "
+                        f"damping lambda of {max_lambda}")
+                continue
+
+            if use_attempt:
+                linearizer.set_state(new_state)
+            else:
+                new_state, l_diff = linearizer.apply_inc(inc)
+                linearizer.set_state(new_state)
+                ri2 = linearizer.compute_error()
+            it_summary.cost = ri2
+
+            if not math.isfinite(l_diff):
+                it_summary.step_is_valid = False
+                it_summary.step_is_successful = False
+                if verbose:
+                    print(f"\t[EVAL] failed to apply update: "
+                          f"l_diff {l_diff}")
+            elif not ri2.is_numerically_valid:
+                it_summary.step_is_valid = False
+                it_summary.step_is_successful = False
+                if verbose:
+                    print(f"\t[EVAL] failed to evaluate cost: "
+                          f"{error_summary_oneline(ri2, validity_check)}")
+            else:
+                # bal_bundle_adjustment.cpp:158-172
+                f_diff = (_cost_scalar(ri, options.optimized_cost)
+                          - _cost_scalar(ri2, options.optimized_cost))
+                if options.optimized_cost == OptimizedCost.ERROR_VALID_AVG:
+                    l_diff = l_diff / ri.valid.num_obs
+                step_quality = f_diff / l_diff if l_diff != 0 else math.inf
+                if verbose:
+                    print(f"\t[EVAL] f_diff {f_diff:.4e} l_diff "
+                          f"{l_diff:.4e} step_quality {step_quality:.4e} "
+                          f"ri1 {ri.valid.error:.4e} ri2 "
+                          f"{ri2.valid.error:.4e}")
+                it_summary.relative_decrease = step_quality
+                it_summary.step_is_valid = l_diff > 0
+                it_summary.step_is_successful = (
+                    it_summary.step_is_valid
+                    and step_quality > options.min_relative_decrease)
+
+            cum = time.monotonic() - timer_total
+            if it_summary.step_is_successful:
+                ri_cache = ri2
+                if verbose:
+                    print(f"\t[Success] lambda: {lam:.1e}, cg_iter: "
+                          f"{it_summary.linear_solver_iterations}, "
+                          f"total_time: {cum:.3f}s")
+                # the cube by multiplication (float ** raises on overflow)
+                t3 = 2.0 * it_summary.relative_decrease - 1.0
+                lam *= max(1.0 / 3, 1.0 - t3 * t3 * t3)
+                lam = max(min_lambda, lam)
+                lambda_vee = initial_vee
+                close_iteration(it_summary, timer_iteration, cum)
+                it += 1
+                iteration_done()
+                reached, msg = _function_tolerance_reached(
+                    summary.iterations[-1], options)
+                if reached:
+                    terminated = True
+                    summary.termination_type = CONVERGENCE
+                    summary.message = msg
+                break
+
+            reason = "Reject" if it_summary.step_is_valid else "Invalid"
+            if verbose:
+                print(f"\t[{reason}] lambda: {lam:.1e}, cg_iter: "
+                      f"{it_summary.linear_solver_iterations}, "
+                      f"total_time: {cum:.3f}s")
+            lam = lambda_vee * lam
+            lambda_vee *= vee_factor
+            close_iteration(it_summary, timer_iteration, cum)
+            linearizer.set_state(backup_state)
+            ri_cache = ri
+            it += 1
+            iteration_done()
+            if lam > max_lambda:
+                terminated = True
+                summary.termination_type = NO_CONVERGENCE
+                summary.message = (
+                    f"Solver did not converge and reached maximum "
+                    f"damping lambda of {max_lambda}")
+
+    if not terminated:
+        summary.termination_type = NO_CONVERGENCE
+        summary.message = (f"Solver did not converge after maximum number "
+                           f"of {max_lm_iter} iterations")
+
+    summary.minimizer_time_in_seconds = time.monotonic() - timer_minimizer
+    summary.postprocessor_time_in_seconds = 0.0
+    summary.total_time_in_seconds = time.monotonic() - timer_total
+    summary.num_threads_used = 1
+    finish_solve(summary, linearizer.linear_solver_type)
+    if verbose:
+        print(f"Final Cost: "
+              f"{error_summary_oneline(summary.final_cost, validity_check)}")
+        print(f"{summary.termination_type}: {summary.message}")
+    return linearizer.state, summary
 
 
 def bundle_adjust(problem: BalProblem,
@@ -157,18 +673,20 @@ def bundle_adjust(problem: BalProblem,
             "the CERES baselines are not ported yet (ROADMAP.md, queue 1: "
             "CERES baselines)")
     bp = bucketize(problem, pow2_from=options.bucket_pow2_from)
-    # routing as in the JAX package: the whole-solve attempt loop below
-    # fused_obs_threshold observations, the host stage driver above it
+    # routing as in the JAX package: the attempt loop up to
+    # fused_obs_threshold observations, the host driver above it and
+    # whenever every stage is to be timed on its own
     lm_loop = options.lm_loop
     if lm_loop == "auto":
         lm_loop = ("fused" if problem.num_observations
                    <= options.fused_obs_threshold else "host")
-    if lm_loop != "fused":
-        raise NotImplementedError(
-            "the host-loop LM driver (lm_loop='host', or more than "
-            "fused_obs_threshold observations) is not ported yet "
-            "(ROADMAP.md, queue 1: host LM driver)")
-    state, summary = optimize_lm_fused(bp, options, summary, device=device)
+    if options.timing_mode == "measured":
+        lm_loop = "host"
+    if lm_loop == "fused":
+        state, summary = optimize_lm_fused(bp, options, summary,
+                                           device=device)
+    else:
+        state, summary = optimize_lm(bp, options, summary, device=device)
     problem.lm_p[:] = scatter_landmarks(
         bp, [p.cpu().double().numpy() for p in state.lm_ps])
     problem.cam_q[:] = state.cams.q.cpu().double().numpy()

@@ -39,6 +39,7 @@ from rootba_tpu_torch.solver.linearization import (
     CamState,
     CamStreamIndex,
     PairStreamIndex,
+    StreamFactors,
     _broadcast_lm,
     _map_rows,
     assemble_rcs_bsr,
@@ -55,9 +56,10 @@ from rootba_tpu_torch.solver.linearization import (
 
 P9 = POSE_SIZE
 
-# above this many bytes of W tables the JAX package streams W rows from
-# (Q1h, Jp) after the slot gather instead of materializing them
-# (sqrt_flat.py:495 there); that branch is not ported yet
+# materialized-W table budget of the stream reducers (see _rcs_factors):
+# above this many bytes the reducers gather (Q1h, Jp) factor rows and
+# build W rows after the gather instead. Module global so tests can
+# force the fused path at toy size.
 _FUSED_W_MIN_BYTES = 1_500_000_000
 
 
@@ -289,7 +291,13 @@ def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
 
 
 def _rcs_factors(lin: FlatLin, stage2: FlatStage2, buckets):
-    """W = Q1h'Jp strip tables per bucket, built by kernel K2."""
+    """W = Q1h'Jp strip tables per bucket, built by kernel K2; above
+    _FUSED_W_MIN_BYTES of tables the (Q1h, Jp) StreamFactors instead,
+    whose W rows the stream reducers build after each slot gather (24
+    values gathered per slot instead of 27, and no resident W table)."""
+    slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1] for b in buckets)
+    if slots * 27 * lin.Jp[0].element_size() > _FUSED_W_MIN_BYTES:
+        return StreamFactors(q=tuple(stage2.Q1h), jp=tuple(lin.Jp))
     Wp = []
     for bucket, q_b, jp_b in zip(buckets, stage2.Q1h, lin.Jp):
         Wp.append(fold.w_build(q_b, jp_b, bucket.cam_idx.shape[1]))
@@ -298,7 +306,8 @@ def _rcs_factors(lin: FlatLin, stage2: FlatStage2, buckets):
 
 def _cached_diag81(lin: FlatLin, W, buckets, cam_strips):
     """Diagonal-block rows from the stage1 Jp gram: per attempt only the
-    lambda-dependent -W'W part is reduced (one K1 pass)."""
+    lambda-dependent -W'W part is reduced (one K1 pass; W tables or
+    StreamFactors)."""
     return lin.diag_jp81 + cam_gram_stream([(W, W, -1.0)], buckets,
                                            cam_strips)
 
@@ -466,15 +475,6 @@ class FlatSqrtLinearizer(LinearizerBase):
                     f"sandwich it enables at >= 48M slots) is not ported "
                     f"yet (ROADMAP.md, queue 1: strips/obs gathers); use "
                     f"'stream'")
-            slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1]
-                        for b in self.bp.buckets)
-            itemsize = torch.empty((), dtype=self.dtype).element_size()
-            if slots * 27 * itemsize > _FUSED_W_MIN_BYTES:
-                raise NotImplementedError(
-                    f"{slots} observation slots need the fused-W stream "
-                    f"factors (> {_FUSED_W_MIN_BYTES} B of W tables), "
-                    f"which are not ported yet (ROADMAP.md, queue 1: "
-                    f"fused-W StreamFactors)")
             from rootba_tpu_torch.bal.bucketing import (
                 build_cam_stream,
                 build_pair_stream,
@@ -500,7 +500,7 @@ class FlatSqrtLinearizer(LinearizerBase):
                 # the half table when the packed one would exceed the
                 # budget
                 self.bsr_sym = bsr_symmetric_fits(
-                    self.bsr, itemsize,
+                    self.bsr, self.dtype.itemsize,
                     int(opts.bsr_pack_max_gb * (1 << 30)))
 
     def error(self, cams, lm_ps):

@@ -39,14 +39,10 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# benchmarks/scale_bench.py's SIZES and STRUCTURE for the two final
-# problems above fused_obs_threshold, copied (nothing of the JAX package
-# is imported); final3068 is chip_smoke's twin
+# benchmarks/scale_bench.py's SIZES and STRUCTURE for final-13682,
+# copied (nothing of the JAX package is imported); final3068 and
+# final4585 are chip_smoke's twins
 TWINS = dict(cs.TWINS)
-TWINS["final4585"] = dict(num_cams=4585, num_lms=1324582, num_obs=9125125,
-                          structure="clustered", track_sigma=1.1,
-                          window_stretch=3.0, p_far=0.03,
-                          max_window_frac=0.08)
 TWINS["final13682"] = dict(num_cams=13682, num_lms=4456117,
                            num_obs=28987644, structure="clustered",
                            track_sigma=1.1, window_stretch=3.0, p_far=0.03,
