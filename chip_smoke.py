@@ -17,7 +17,9 @@ also with the implicit operator; every K1/K2 call of one float32 and
 one float64 BSR solve held against the kernel's twin) and final-4585
 (above fused_obs_threshold: the host LM driver; in float64 the BSR half
 table and the fused-W stream factors, held to the attempt loop with the
-packed table and W tables; float32 timed and held to float64) --
+packed table and W tables; float32 timed and held to float64; every
+K1/K2 call of the float64 solve and of one float32 solve held against
+the kernel's twin) --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -1225,14 +1227,13 @@ class FactorSpy:
 
 
 def check_fused_w(dev) -> None:
-    """Fused-W rows (built after the slot gather from the gathered Q1h
-    and Jp rows, solver/linearization._gather_slot_rows) on the card
-    against the same on the CPU and against K2 run on the gathered rows
-    (n = 1): equal bits, pads included (the gather's zero row)."""
+    """Fused-W rows (K2 at n = 1 on the gathered Q1h and Jp rows,
+    solver/linearization._gather_slot_rows) on the card against the same
+    on the CPU (K2's plain twin): equal bits, pads included (the
+    gather's zero row)."""
     import numpy as np
     import torch
 
-    from rootba_tpu_torch.ops import fold
     from rootba_tpu_torch.solver.linearization import (
         _gather_slot_rows,
         _slot_table,
@@ -1250,18 +1251,15 @@ def check_fused_w(dev) -> None:
         for d in ("cpu", dev):
             tab = _slot_table((q.to(d), jp.to(d)), n)
             rows[d] = _gather_slot_rows(tab, idx.to(d))
-        k2 = fold.w_build(_slot_table(q.to(dev), n)[idx.to(dev)],
-                          _slot_table(jp.to(dev), n)[idx.to(dev)], 1)
         pads = idx == L * n
         check(bool(pads.any()) and not rows[dev][pads.to(dev)].any(),
               f"fused-W rows {dtype}: pad rows not zero")
-        for what, other in (("cpu", rows["cpu"]), ("K2 n=1", k2.cpu())):
-            err = max_abs(rows[dev].cpu(), other)
-            check(err == 0.0, f"fused-W rows {dtype} on the card vs "
-                              f"{what}: max abs err {err}")
+        err = max_abs(rows[dev].cpu(), rows["cpu"])
+        check(err == 0.0, f"fused-W rows {dtype} on the card vs the CPU: "
+                          f"max abs err {err}")
         print(f"[phase 2] fused-W rows {str(dtype)[6:]}: {idx.numel()} "
               f"gathered slots ({int(pads.sum())} pads), card equal to "
-              f"the CPU and to K2 at n = 1", flush=True)
+              f"the CPU", flush=True)
 
 
 def dense_from_half(half, diag, pr, pc):
@@ -1392,7 +1390,8 @@ def final4585_phase() -> dict:
     fused_obs_threshold) through the CLI's main path and the routes it
     selects, each run with the launch counts set to 0 just before it and
     read just after. Returns, for the kernel table, the launch counts and
-    attempts of 8a and 8c, and 8a's twin checks (TwinCheck.stats)."""
+    attempts of 8a and 8c, and the twin checks (TwinCheck.stats) of 8a
+    (float64) and of 8c's untimed solve (float32)."""
     import copy
 
     import torch
@@ -1455,8 +1454,9 @@ def final4585_phase() -> dict:
                 f"{peak / 2**20:.1f} MiB")
 
     # 8a: float64, default options, 2 LM iterations through run_app: the
-    # host LM driver, the half table and the fused-W factors, so K1 and
-    # no K2; every K1 call held against its twin
+    # host LM driver, the half table and the fused-W factors, whose W
+    # rows K2 builds after each slot gather; every K1 and K2 call held
+    # against its twin
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
@@ -1467,14 +1467,13 @@ def final4585_phase() -> dict:
     n = dict(kernels.LAUNCHES)
     peak_a = torch.cuda.max_memory_allocated()
     attempts = route("final4585 f64", la, loops, spy, factors, n, "host",
-                     True, "fused", False)
+                     True, "fused", True)
     counts["final4585_f64"] = (n, attempts)
     print(f"[phase 8a] final-4585 twin f64, default options (host LM "
           f"driver, BSR half table, fused-W), 2 LM iterations with every "
-          f"K1 call held against its twin (the times include the checks):"
-          f" {readout('final4585_f64', la, wall, peak_a)}, launches {n}; "
-          f"{tw.report('final4585 f64', expect=('outer81_fold',))}",
-          flush=True)
+          f"K1 and K2 call held against its twin (the times include the "
+          f"checks): {readout('final4585_f64', la, wall, peak_a)}, "
+          f"launches {n}; {tw.report('final4585 f64')}", flush=True)
 
     # 8b: the same problem in float64 through the routes that the
     # final-3068 phases check: the attempt loop, the packed table and W
@@ -1522,12 +1521,13 @@ def final4585_phase() -> dict:
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        ld = build_log_dict(bundle_adjust(problem, opts, device="cuda"))
+        ld = build_log_dict(bundle_adjust(copy.deepcopy(problem), opts,
+                                          device="cuda"))
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     route("final4585 f64 timed", ld, loops, spy, factors, n, "host", True,
-          "fused", False)
+          "fused", True)
     check(len(ld["cost"]) == len(la["cost"]), "final4585: 8d's length")
     rel = held("f64 in process vs the CLI", ld, la, 1e-8)
     rd = readout("final4585_f64_timed", ld, wall, peak, "bundle_adjust")
@@ -1535,6 +1535,25 @@ def final4585_phase() -> dict:
           f"no twin checks, 2 LM iterations: {rd}, launches {n}; against "
           f"8a: identical accept/reject and CG counts, costs within rel "
           f"{rel:.2e} (tol 1e-8)", flush=True)
+
+    # 8c, first untimed: float32, default options, 1 LM iteration in
+    # process with every K1 and K2 call held against its twin at this
+    # route's shapes (the host LM driver, the packed table, W tables)
+    opts = copy.deepcopy(options.solver)
+    opts.use_double, opts.max_num_iterations = False, 1
+    opts.function_tolerance, opts.verbosity_level = 0.0, 1
+    kernels.reset_launches()
+    t = time.monotonic()
+    with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
+            TwinCheck() as tw32:
+        le = build_log_dict(bundle_adjust(problem, opts, device="cuda"))
+    wall = time.monotonic() - t
+    route("final4585 f32 checked", le, loops, spy, factors,
+          dict(kernels.LAUNCHES), "host", False, "tables", True)
+    print(f"[phase 8c] final-4585 twin f32, default options in process, 1 "
+          f"untimed LM iteration with every K1 and K2 call held against "
+          f"its twin ({wall:.3f} s): {tw32.report('final4585 f32')}",
+          flush=True)
     problem = None
 
     # 8c: float32, default options, 3 LM iterations, timed: the host LM
@@ -1558,7 +1577,7 @@ def final4585_phase() -> dict:
     print(f"[phase 8c] f32 vs f64 (8a) over {len(la['cost']) - 1} "
           f"iterations: identical accept/reject, costs within rel "
           f"{rel:.2e} (tol 2e-3)", flush=True)
-    return counts, tw.stats
+    return counts, {"float64": tw.stats, "float32": tw32.stats}
 
 
 def main() -> int:
@@ -1802,6 +1821,8 @@ def main() -> int:
     lap("phase 7b")
 
     phase8, tw4585 = final4585_phase()
+    for k, st in tw4585["float32"].items():
+        errs[k] = max(errs[k], st["max_abs_err"])
     lap("phase 8")
 
     # phase 6: the counted solve of each path, under a trace: the launch
@@ -1849,15 +1870,16 @@ def main() -> int:
     attempts = {p: len(lg["iteration_time"]) - 1 for p, lg in logs.items()}
     rows = [k1_row(rec_t, errs), k2_row(rec_t, errs)]
     # the final-3068 path's every call, checked in phases 7 and 7b, and
-    # the final-4585 f64 path's (8a: K1 only)
+    # the final-4585 paths' (8a in f64, 8c's untimed solve in f32)
     for r in rows[:2]:
         st32, st64 = tw32.stats[r["name"]], tw64.stats[r["name"]]
         r["final3068_checked"] = {"float32": st32, "float64": st64}
-        r["final4585_checked"] = {"float64": tw4585[r["name"]]}
+        r["final4585_checked"] = {p: st[r["name"]]
+                                  for p, st in tw4585.items()}
         if "max_abs_err_f64" in r:
-            r["max_abs_err_f64"] = max(r["max_abs_err_f64"],
-                                       st64["max_abs_err"],
-                                       tw4585[r["name"]]["max_abs_err"])
+            r["max_abs_err_f64"] = max(
+                r["max_abs_err_f64"], st64["max_abs_err"],
+                tw4585["float64"][r["name"]]["max_abs_err"])
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,

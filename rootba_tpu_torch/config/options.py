@@ -140,8 +140,9 @@ class SolverOptions:
     """Reference: src/rootba/bal/solver_options.hpp:46-283, trimmed to the
     options the port reads. The JAX package's knobs of paths the port
     does not have yet (the multi-device mesh, checkpoints, strip
-    gathers, PoBA and the CERES baselines) are left out, so setting one
-    is an unknown-key or unknown-flag error."""
+    gathers, PoBA, the CERES baselines and the host driver's
+    calibration timing) are left out, so setting one is an unknown-key
+    or unknown-flag error."""
 
     solver_type: SolverType = opt(
         SolverType.SQUARE_ROOT,
@@ -186,39 +187,18 @@ class SolverOptions:
     lm_loop: str = opt(
         "auto", help="'fused' runs the LM attempt loop (one host sync "
                      "per attempt); 'host' runs the reference's "
-                     "stage-by-stage driver (an outer loop per "
-                     "linearization, backtracking attempts inside, "
-                     "periodic calibration attempts of separately "
-                     "synced stages); 'auto' picks fused up to "
+                     "driver (an outer loop per linearization, "
+                     "backtracking attempts inside, the same attempt "
+                     "body); 'auto' picks fused up to "
                      "fused_obs_threshold observations and host above")
     fused_obs_threshold: int = opt(
         2_000_000, help="observation count above which lm_loop='auto' "
                         "picks the host driver")
-    host_fused_attempt: bool = opt(
-        True, help="host LM loop: run solve+apply+error of a "
-                   "backtracking attempt without a host read between "
-                   "the stages, one sync per attempt. Disable to run "
-                   "solve, then apply and the cost evaluation, each "
-                   "synced (an attempt whose increment is not finite "
-                   "then skips apply and the cost)")
-    timing_calibration_interval: int = opt(
-        8, help="host LM loop with host_fused_attempt: every this many "
-                "attempts, run the stages as separately synced calls "
-                "(solve, apply, cost) (0 disables)")
-    defer_stage_sync: bool = opt(
-        True, help="host LM loop with host_fused_attempt: no host sync "
-                   "after stage1 (and after stage2 of the two-part "
-                   "attempt above fused_obs_threshold); stage1's "
-                   "numerical-failure check moves to the attempt's "
-                   "sync. Calibration attempts never defer")
     timing_mode: str = opt(
-        "fast", help="'fast' (default): host LM loop attempts with one "
-                     "sync each; 'measured': every stage runs as its "
-                     "own synced call (shorthand for the host lm_loop + "
-                     "timing_calibration_interval=1 + "
-                     "defer_stage_sync=false). Stage times come from "
-                     "CUDA events at the stage boundaries in either "
-                     "mode")
+        "fast", help="'measured' runs the host LM loop whatever lm_loop "
+                     "says; 'fast' (default) leaves the choice to "
+                     "lm_loop. Stage times come from CUDA events at the "
+                     "stage boundaries in either mode")
     dense_rcs_max_cameras: int = opt(
         2048, help="assemble the reduced camera system as one dense "
                    "[9N, 9N] matrix (CG by dense GEMVs) when "
@@ -282,14 +262,6 @@ class SolverOptions:
 
     def use_projection_validity_check(self) -> bool:
         return self.optimized_cost != OptimizedCost.ERROR
-
-    def effective_timing(self):
-        """(calibration_interval, defer_stage_sync) after resolving
-        timing_mode: 'measured' forces a calibration attempt on every
-        iteration with every stage synced."""
-        if self.timing_mode == "measured":
-            return 1, False
-        return self.timing_calibration_interval, self.defer_stage_sync
 
 
 @dataclass

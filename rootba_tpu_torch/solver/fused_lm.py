@@ -18,13 +18,15 @@ bal_bundle_adjustment.cpp:249-544):
 
 The JAX loop relinearizes on every attempt (bit-identical values while
 backtracking); this loop reuses the linearization of a rejected attempt,
-which gives the same values. The accept decision reads a handful of
-scalars back to the host in one transfer per attempt, the driver's
-only sync (pcg in solver/cg.py adds one per CG iteration; the CG
-kernel none). That sync also timestamps the attempt, so per-iteration
-times are measured (timing_attributed=False). The per-stage split comes
-from CUDA events recorded at the stage boundaries and read after the
-sync (the host clock on the CPU), so it adds no sync of its own.
+which gives the same values. The attempt body is
+`LinearizerBase.attempt_at` (solver/lm.py), which the host driver runs
+too. It reads a handful of scalars back to the host in one transfer per
+attempt, the driver's only sync (pcg in solver/cg.py adds one per CG
+iteration; the CG kernel none). That sync also timestamps the attempt,
+so per-iteration times are measured (timing_attributed=False). The
+per-stage split comes from CUDA events recorded at the stage boundaries
+and read after the sync (the host clock on the CPU), so it adds no sync
+of its own.
 Decision arithmetic runs in Python floats (float64), as the JAX loop's
 with x64 enabled.
 """
@@ -39,11 +41,7 @@ from typing import List, Optional
 import torch
 
 from rootba_tpu_torch.config.options import OptimizedCost, SolverOptions
-from rootba_tpu_torch.core.residuals import (
-    residual_info_from_values,
-    residual_info_to_host,
-    residual_info_vector,
-)
+from rootba_tpu_torch.core.residuals import residual_info_to_host
 from rootba_tpu_torch.log.summary import (
     CONVERGENCE,
     NO_CONVERGENCE,
@@ -181,28 +179,10 @@ def optimize_lm_fused(bp, options: SolverOptions,
             lins, pose_scale, _ = linearizer.stage1(cams, lm_ps)
             n_jac += 1
             clock.lap("stage1")
-        lam_t = torch.tensor(lam, dtype=dtype, device=device)
-        aux = linearizer.stage2(lins, lam_t)
-        clock.lap("stage2")
-        inc, stage2, cg_iters, _cg_term = linearizer.lsolve(lins, aux)
-        del aux  # the assembled system is not kept past its solve
-        inc_finite_t = torch.all(torch.isfinite(inc))
-        clock.lap("lsolve")
-        new_cams, new_lm_ps, l_diff_t = linearizer.apply(
-            cams, lm_ps, lins, stage2, pose_scale, inc)
-        clock.lap("bsub")
-        info2 = linearizer.error(new_cams, new_lm_ps)
-        clock.lap("err")
-        # the attempt's one sync: cost, l_diff, finiteness and CG count
-        *v, l_diff, inc_finite, cg_iters = torch.cat([
-            residual_info_vector(info2), torch.stack([
-                l_diff_t.to(torch.float64), inc_finite_t.to(torch.float64),
-                torch.as_tensor(cg_iters, device=device).to(torch.float64),
-            ])]).tolist()
+        a = linearizer.attempt_at(cams, lm_ps, lins, pose_scale, lam, clock)
         it_times.append(time.monotonic() - clock.t0)
-        ri2 = residual_info_from_values(v)
-        inc_finite = bool(inc_finite)
-        cg_iters = int(cg_iters)
+        ri2, l_diff, inc_finite = a.ri2, a.l_diff, a.inc_finite
+        cg_iters = a.cg_iters
 
         f_diff = _cost_scalar(ri, opt_cost) - _cost_scalar(ri2, opt_cost)
         l_eff = l_diff
@@ -234,7 +214,7 @@ def optimize_lm_fused(bp, options: SolverOptions,
                     relative_decrease=quality if step_valid else 0.0,
                     l_diff=l_diff)
         if success:
-            cams, lm_ps, ri = new_cams, new_lm_ps, ri2
+            cams, lm_ps, ri = a.cams, a.lm_ps, ri2
             lins = None  # new linearization point
         lam = lam_new
         it += 1

@@ -266,11 +266,12 @@ def _slot_table(t, n: int):
 
 def _gather_slot_rows(table, idx: torch.Tensor) -> torch.Tensor:
     """Slot rows of a slot table at idx, or, from a (q, jp) pair of slot
-    tables, the W rows of those slots built after the gather (the r = 0
-    term plus the r = 1 term, as K2's twin; zero rows at the pads)."""
+    tables, the W rows of those slots built after the gather: K2 at
+    n = 1 on the gathered rows (the r = 0 term plus the r = 1 term; zero
+    rows at the pads)."""
     if isinstance(table, tuple):
         q6, jp18 = table
-        return fold.w_build_plain(q6[idx], jp18[idx], 1)
+        return fold.w_build(q6[idx], jp18[idx], 1)
     return table[idx]
 
 

@@ -16,27 +16,23 @@ linearization, lambda *= max(1/3, 1 - (2 rho - 1)^3) on success and
 lambda *= vee on reject, and termination on the function tolerance,
 lambda > max_lambda or the iteration cap.
 
-Mapping of the JAX driver's device dispatches onto eager PyTorch: a
-"dispatch" is a run of stage calls with no host read; a "sync" is the
-one host read of an attempt's scalars. An attempt ("full" up to
-fused_obs_threshold observations, "half" above it) runs stage2, the
-linear solve, apply and the cost evaluation and syncs once; "half"
-also syncs after stage2 when defer_stage_sync is off. With
-defer_stage_sync, stage1 is not synced either and its failure count is
-read at the next attempt's sync. Every timing_calibration_interval-th
-attempt is a calibration attempt: solve, apply and the cost, each
-synced, as with host_fused_attempt=False. Every stage span is timed by
-CUDA events at the stage boundaries (fused_lm._StageClock), read after
-the sync that covers them, so no total is split by calibration
-fractions: every iteration has timing_attributed=False and measured
-stage fields, in every mode.
+One attempt body serves both drivers: `LinearizerBase.attempt_at`
+runs stage2, the linear solve, apply and the cost evaluation and reads
+their scalars back in one host transfer (the attempt's only sync), as
+the JAX host driver's one-dispatch attempt does. Every stage span is
+timed by CUDA events at the stage boundaries (fused_lm._StageClock),
+read after that sync, so every iteration has measured stage fields and
+timing_attributed=False. The JAX driver's calibration attempts, its
+split of a dispatch's total by calibration fractions and its deferred
+stage1 sync exist only for that split and are not ported (nor their
+options host_fused_attempt, timing_calibration_interval and
+defer_stage_sync); timing_mode="measured" routes to this loop.
 
 Not ported: the JAX driver's capacity ladder (degrading "full" to
 "half" to separate dispatches on compile-size errors) and its transient
-retry of compile-service errors. Eager PyTorch compiles nothing, and
-its split modes allocate the same tensors, so a degrade after
-torch.cuda.OutOfMemoryError would fail again; every error propagates
-with its cause.
+retry of compile-service errors. Eager PyTorch compiles nothing, so a
+degrade after torch.cuda.OutOfMemoryError would run the same
+allocations and fail again; every error propagates with its cause.
 """
 
 from __future__ import annotations
@@ -132,9 +128,18 @@ def initial_state(bp: BucketedProblem, dtype: torch.dtype,
                             dtype, device)
 
 
-def _linearization_failure(failures: int) -> FloatingPointError:
-    return FloatingPointError(f"numerical failure during linearization "
-                              f"({failures} observations)")
+class Attempt(NamedTuple):
+    """One LM attempt's result: the state after the increment, l_diff,
+    the cost there, whether the increment was finite, and the linear
+    solve's iterations and termination code."""
+
+    cams: CamState
+    lm_ps: Tuple[torch.Tensor, ...]
+    l_diff: float
+    ri2: ResidualInfoHost
+    inc_finite: bool
+    cg_iters: int
+    cg_term: int
 
 
 class LinearizerBase:
@@ -149,10 +154,10 @@ class LinearizerBase:
           -> (cams, lm_ps, l_diff)
     All run on `device`; nothing is compiled or cached between calls.
 
-    The base adds the host driver's calls on the linearizer's own state
-    (set_state): linearize, solve, apply_inc (the JAX driver's `apply`;
-    here `apply` is the stage), compute_error and attempt, which count
-    the solver summary's linear solves and residual and Jacobian
+    The base adds `attempt_at`, the attempt body of both LM drivers,
+    and the host driver's calls on the linearizer's own state
+    (set_state): linearize, compute_error and attempt, which count the
+    solver summary's linear solves and residual and Jacobian
     evaluations and time the iteration's stage fields."""
 
     linear_solver_type = "?"
@@ -177,20 +182,41 @@ class LinearizerBase:
         self.state: Optional[BAState] = None
         self.it_summary: Optional[IterationSummary] = None
         self.summary: Optional[SolverSummary] = None
-        self._attempt_idx = -1
-        # stage1's failure count (a device scalar) and its clock and
-        # iteration, while a deferred linearize waits for the next sync
-        self._pending_failures: Optional[torch.Tensor] = None
-        self._pending_stage1 = None
-        # as in the JAX driver: the two-part attempt above the fused
-        # loop's observation threshold
-        self._attempt_mode = (
-            "full" if bp.num_observations <= options.fused_obs_threshold
-            else "half")
         self._build()
 
     def _build(self):
         raise NotImplementedError
+
+    def attempt_at(self, cams: CamState, lm_ps, lins, pose_scale,
+                   lam: float, clock: _StageClock) -> Attempt:
+        """One LM attempt at a linearization: stage2(lam), the linear
+        solve, apply of the increment (as it is: a caller discards the
+        state of an increment that is not finite) and the cost at the
+        new state, with one host read of their scalars. `clock` gets a
+        lap at each stage boundary."""
+        lam_t = torch.full((), lam, dtype=self.dtype, device=self.device)
+        aux = self.stage2(lins, lam_t)
+        clock.lap("stage2")
+        inc, stage2, cg_iters, cg_term = self.lsolve(lins, aux)
+        del aux  # the assembled system is not kept past its solve
+        inc_finite = torch.all(torch.isfinite(inc))
+        clock.lap("lsolve")
+        cams2, lm_ps2, l_diff = self.apply(cams, lm_ps, lins, stage2,
+                                           pose_scale, inc)
+        clock.lap("bsub")
+        info2 = self.error(cams2, lm_ps2)
+        clock.lap("err")
+        # the attempt's one sync: cost, l_diff, finiteness, the CG count
+        # and termination
+        *v, l_diff, inc_finite, cg_iters, cg_term = torch.cat([
+            residual_info_vector(info2), torch.stack([
+                torch.as_tensor(x, device=self.device).to(torch.float64)
+                for x in (l_diff, inc_finite, cg_iters, cg_term)])
+        ]).tolist()
+        return Attempt(cams=cams2, lm_ps=lm_ps2, l_diff=l_diff,
+                       ri2=residual_info_from_values(v),
+                       inc_finite=bool(inc_finite), cg_iters=int(cg_iters),
+                       cg_term=int(cg_term))
 
     # -- the host driver's calls ---------------------------------------
     def set_state(self, state: BAState):
@@ -201,69 +227,6 @@ class LinearizerBase:
 
     def finish_iteration(self):
         pass
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _lam(self, lam: float) -> torch.Tensor:
-        # a fill on the device, not a host copy (which would sync)
-        return torch.full((), lam, dtype=self.dtype, device=self.device)
-
-    def _read(self, *scalars) -> list:
-        """One device->host transfer of scalars (device tensors or
-        Python numbers) as floats."""
-        return torch.stack([
-            v.to(self.device, torch.float64) if torch.is_tensor(v)
-            else torch.full((), float(v), dtype=torch.float64,
-                            device=self.device)
-            for v in scalars]).tolist()
-
-    def _note_solve(self, cg_iters: int, cg_term: int):
-        its = self.it_summary
-        if its is not None:
-            its.linear_solver_iterations = cg_iters
-            its.linear_solver_message = (f"cg_term={cg_term} "
-                                         f"iters={cg_iters}")
-            its.linear_solver_type = self.linear_solver_type
-        if self.summary is not None:
-            self.summary.num_linear_solves += 1
-
-    def _record_stage1(self, clock: _StageClock, its):
-        if its is not None:
-            its.stage1_time_in_seconds = clock.spans()["stage1"]
-            # the reference reports jacobian evaluation as the stage1
-            # body (linearizor_qr.cpp)
-            its.jacobian_evaluation_time_in_seconds = (
-                its.stage1_time_in_seconds)
-
-    def _consume_failures(self, failures: Optional[float] = None):
-        """After a sync: a deferred stage1's span into the iteration that
-        linearized, and its failure check (`failures`: the count read
-        with the attempt's scalars)."""
-        if self._pending_failures is None:
-            return
-        if failures is None:
-            failures = float(self._pending_failures)
-        clock, its = self._pending_stage1
-        self._pending_failures = self._pending_stage1 = None
-        if failures > 0:
-            raise _linearization_failure(int(failures))
-        self._record_stage1(clock, its)
-
-    def _defer_sync(self, upcoming_idx: Optional[int] = None) -> bool:
-        """True when stage1 (and a half attempt's stage2) should run
-        without a sync of its own (defer_stage_sync), except right
-        before a calibration attempt, which times every stage synced.
-        `upcoming_idx` is the index of the attempt that consumes the
-        stage; the default is the next attempt's."""
-        interval, defer = self.options.effective_timing()
-        if not (defer and self.options.host_fused_attempt):
-            return False
-        if upcoming_idx is None:
-            upcoming_idx = self._attempt_idx + 1
-        interval = max(interval, 0)
-        return not (interval and upcoming_idx % interval == 0)
 
     def compute_error(self) -> ResidualInfoHost:
         clock = _StageClock(self.device)
@@ -279,99 +242,34 @@ class LinearizerBase:
 
     def linearize(self):
         """stage1 at the current state; raises FloatingPointError when
-        it counts numerical failures (at the next sync when deferred)."""
-        its = self.it_summary
+        it counts numerical failures."""
         clock = _StageClock(self.device)
         lins, pose_scale, failures = self.stage1(self.state.cams,
                                                  self.state.lm_ps)
         clock.lap("stage1")
-        if self._defer_sync():
-            self._pending_failures = failures
-            self._pending_stage1 = (clock, its)
-        else:
-            n = int(failures)
-            if n > 0:
-                raise _linearization_failure(n)
-            self._record_stage1(clock, its)
+        n = int(failures)
+        if n > 0:
+            raise FloatingPointError(f"numerical failure during "
+                                     f"linearization ({n} observations)")
+        its = self.it_summary
+        if its is not None:
+            its.stage1_time_in_seconds = clock.spans()["stage1"]
+            # the reference reports jacobian evaluation as the stage1
+            # body (linearizor_qr.cpp)
+            its.jacobian_evaluation_time_in_seconds = (
+                its.stage1_time_in_seconds)
         self._lins = lins
         self._pose_scale = pose_scale
         if self.summary is not None:
             self.summary.num_jacobian_evaluations += 1
 
-    def solve(self, lam: float) -> torch.Tensor:
-        """stage2, synced, then the linear solve, synced (the reference
-        records them as separate spans, linearizor_qr.cpp:141-265)."""
+    def attempt(self, lam: float) -> Attempt:
+        """attempt_at the current state and linearization, counted and
+        timed into the iteration; the caller decides whether to
+        set_state the attempt's state."""
         clock = _StageClock(self.device)
-        aux = self.stage2(self._lins, self._lam(lam))
-        clock.lap("stage2")
-        self._sync()
-        self._consume_failures()
-        inc, stage2, cg_iters, cg_term = self.lsolve(self._lins, aux)
-        del aux  # the assembled system is not kept past its solve
-        clock.lap("lsolve")
-        cg_iters, cg_term = (int(v) for v in self._read(cg_iters, cg_term))
-        self._stage2 = stage2
-        spans = clock.spans()
-        if self.it_summary is not None:
-            self.it_summary.stage2_time_in_seconds = spans["stage2"]
-            self.it_summary.solve_reduced_system_time_in_seconds = (
-                spans["lsolve"])
-        self._note_solve(cg_iters, cg_term)
-        return inc
-
-    def apply_inc(self, inc: torch.Tensor) -> Tuple[BAState, float]:
-        """Back substitution and the pose update of the last solve's
-        increment, synced: (new state, l_diff)."""
-        clock = _StageClock(self.device)
-        cams, lm_ps, l_diff = self.apply(
-            self.state.cams, self.state.lm_ps, self._lins, self._stage2,
-            self._pose_scale, inc)
-        clock.lap("bsub")
-        l_diff = float(l_diff)
-        if self.it_summary is not None:
-            self.it_summary.back_substitution_time_in_seconds = (
-                clock.spans()["bsub"])
-        return BAState(cams=cams, lm_ps=lm_ps), l_diff
-
-    def attempt(self, lam: float):
-        """One LM backtracking attempt -- solve(lam), apply, the cost --
-        with one sync: (new_state, l_diff, ri2, inc_finite); the caller
-        decides whether to set_state(new_state). Every
-        timing_calibration_interval-th attempt runs the separately
-        synced calls instead (_attempt_calibrated)."""
-        self._attempt_idx += 1
-        interval = max(self.options.effective_timing()[0], 0)
-        if interval and self._attempt_idx % interval == 0:
-            return self._attempt_calibrated(lam)
-        return self._attempt_synced_once(lam)
-
-    def _attempt_synced_once(self, lam: float):
-        """The "full" attempt, or the "half" one, which also syncs after
-        stage2 unless deferred."""
-        clock = _StageClock(self.device)
-        aux = self.stage2(self._lins, self._lam(lam))
-        clock.lap("stage2")
-        if (self._attempt_mode == "half"
-                and not self._defer_sync(self._attempt_idx)):
-            self._sync()
-        inc, stage2, cg_iters, cg_term = self.lsolve(self._lins, aux)
-        del aux
-        inc_finite = torch.all(torch.isfinite(inc))
-        safe_inc = torch.where(inc_finite, inc, torch.zeros_like(inc))
-        clock.lap("lsolve")
-        cams2, lm_ps2, l_diff = self.apply(
-            self.state.cams, self.state.lm_ps, self._lins, stage2,
-            self._pose_scale, safe_inc)
-        clock.lap("bsub")
-        info2 = self.error(cams2, lm_ps2)
-        clock.lap("err")
-        # the attempt's one sync: cost, l_diff, finiteness, the CG count
-        # and termination, and a deferred stage1's failure count
-        pending = self._pending_failures
-        *v, l_diff, inc_finite, cg_iters, cg_term, failures = self._read(
-            *residual_info_vector(info2), l_diff, inc_finite, cg_iters,
-            cg_term, 0 if pending is None else pending)
-        self._consume_failures(failures)
+        a = self.attempt_at(self.state.cams, self.state.lm_ps, self._lins,
+                            self._pose_scale, lam, clock)
         spans = clock.spans()
         its = self.it_summary
         if its is not None:
@@ -379,27 +277,14 @@ class LinearizerBase:
             its.solve_reduced_system_time_in_seconds = spans["lsolve"]
             its.back_substitution_time_in_seconds = spans["bsub"]
             its.residual_evaluation_time_in_seconds += spans["err"]
-        self._note_solve(int(cg_iters), int(cg_term))
+            its.linear_solver_iterations = a.cg_iters
+            its.linear_solver_message = (f"cg_term={a.cg_term} "
+                                         f"iters={a.cg_iters}")
+            its.linear_solver_type = self.linear_solver_type
         if self.summary is not None:
+            self.summary.num_linear_solves += 1
             self.summary.num_residual_evaluations += 1
-        return (BAState(cams=cams2, lm_ps=lm_ps2), l_diff,
-                residual_info_from_values(v), bool(inc_finite))
-
-    def _attempt_calibrated(self, lam: float):
-        """attempt() through the separately synced calls; the state is
-        the pre-attempt one afterwards, also when a call raises."""
-        backup = self.state
-        try:
-            inc = self.solve(lam)
-            inc_finite = bool(torch.all(torch.isfinite(inc)))
-            if not inc_finite:
-                inc = torch.zeros_like(inc)
-            new_state, l_diff = self.apply_inc(inc)
-            self.set_state(new_state)
-            ri2 = self.compute_error()
-        finally:
-            self.set_state(backup)
-        return new_state, l_diff, ri2, inc_finite
+        return a
 
 
 def create_linearizer(bp: BucketedProblem, options: SolverOptions,
@@ -484,10 +369,8 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     timer_minimizer = time.monotonic()
 
     validity_check = options.use_projection_validity_check()
-    # the attempt runs solve+apply+error with one sync (see
-    # LinearizerBase.attempt); the top-of-loop error is then the previous
-    # attempt's evaluation of the same state
-    use_attempt = bool(options.host_fused_attempt)
+    # the top-of-loop error is the previous attempt's evaluation of the
+    # same state
     ri_cache: Optional[ResidualInfoHost] = None
     terminated = False
     it = 0
@@ -530,13 +413,10 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
             j += 1
 
             backup_state = linearizer.state
-            if use_attempt:
-                new_state, l_diff, ri2, inc_finite = linearizer.attempt(lam)
-            else:
-                inc = linearizer.solve(lam)
-                inc_finite = bool(torch.all(torch.isfinite(inc)))
+            a = linearizer.attempt(lam)
+            l_diff, ri2 = a.l_diff, a.ri2
 
-            if not inc_finite:
+            if not a.inc_finite:
                 it_summary.step_is_valid = False
                 it_summary.step_is_successful = False
                 if verbose:
@@ -555,12 +435,7 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
                         f"damping lambda of {max_lambda}")
                 continue
 
-            if use_attempt:
-                linearizer.set_state(new_state)
-            else:
-                new_state, l_diff = linearizer.apply_inc(inc)
-                linearizer.set_state(new_state)
-                ri2 = linearizer.compute_error()
+            linearizer.set_state(BAState(cams=a.cams, lm_ps=a.lm_ps))
             it_summary.cost = ri2
 
             if not math.isfinite(l_diff):

@@ -293,8 +293,9 @@ def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
 def _rcs_factors(lin: FlatLin, stage2: FlatStage2, buckets):
     """W = Q1h'Jp strip tables per bucket, built by kernel K2; above
     _FUSED_W_MIN_BYTES of tables the (Q1h, Jp) StreamFactors instead,
-    whose W rows the stream reducers build after each slot gather (24
-    values gathered per slot instead of 27, and no resident W table)."""
+    whose W rows the stream reducers build after each slot gather, by
+    K2 on the gathered rows (24 values gathered per slot instead of 27,
+    and no resident W table)."""
     slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1] for b in buckets)
     if slots * 27 * lin.Jp[0].element_size() > _FUSED_W_MIN_BYTES:
         return StreamFactors(q=tuple(stage2.Q1h), jp=tuple(lin.Jp))

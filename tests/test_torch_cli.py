@@ -124,6 +124,7 @@ def test_cli_help_and_dump_config(capsys):
 @pytest.mark.parametrize("argv", [["--num-devices", "2"],
                                   ["--checkpoint-path", "f.npz"],
                                   ["--power-order", "3"],
+                                  ["--defer-stage-sync", "false"],
                                   ["--strip-min-group", "0"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
     """The port's config has no options for paths it does not have, so

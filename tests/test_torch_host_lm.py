@@ -9,12 +9,12 @@ of the port against the JAX package on the CPU, on the conftest problem.
     iterations: later its costs sit at rounding level, where accept and
     reject are noise in any two implementations.
 (b) The port's host loop against the port's attempt loop (fused_lm).
-(c) Calibration attempts fall on exactly the iterations where the JAX
-    run reports timing_attributed=False; the port attributes no time.
-(d) host_fused_attempt=False, defer_stage_sync=False and a run with
-    rejected steps give the JAX package's run and counts; a NaN landmark
-    raises in both packages; stage1's failure check, deferred or not;
-    an increment that is not finite.
+(c) Every iteration's stage times are measured (timing_attributed is
+    False, the stage fields are set); timing_mode="measured" routes to
+    the host loop.
+(d) A run with rejected steps and a run with an increment that is not
+    finite give the JAX package's run and counts; a NaN landmark raises
+    in both packages; stage1's failure check.
 (e) Fused-W (StreamFactors, forced with _FUSED_W_MIN_BYTES = 0 in both
     packages) against the JAX package's fused-W and the port's
     materialized W: the assembled table, the diagonal blocks and one LM
@@ -53,8 +53,7 @@ from rootba_tpu_torch.solver.lm import state_from_numpy
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
-HOST = dict(verbosity_level=0, lm_loop="host", function_tolerance=1e-5,
-            timing_calibration_interval=3)
+HOST = dict(verbosity_level=0, lm_loop="host", function_tolerance=1e-5)
 
 
 def _opts(use_double: bool, mode: str, **extra) -> dict:
@@ -138,28 +137,9 @@ def test_host_loop_matches_attempt_loop(jax_host, synthetic_problem):
     assert host.termination_type == fused.termination_type
 
 
-def _spy_calibrated(monkeypatch) -> list:
-    """The iterations whose attempt ran as a calibration attempt."""
-    seen = []
-    real = tlm.LinearizerBase._attempt_calibrated
-
-    def spy(self, lam):
-        seen.append(self.it_summary.iteration)
-        return real(self, lam)
-
-    monkeypatch.setattr(tlm.LinearizerBase, "_attempt_calibrated", spy)
-    return seen
-
-
-def test_calibration_attempts_where_jax_calibrates(jax_host,
-                                                   synthetic_problem,
-                                                   monkeypatch):
-    use_double, opts, j = jax_host
-    seen = _spy_calibrated(monkeypatch)
-    t = _port_solve(synthetic_problem, opts)
-    want = [i for i, it in enumerate(j.iterations)
-            if i > 0 and not it.timing_attributed]
-    assert seen == want and 1 in want
+def _timed_by_stage(t):
+    """No time attributed; every attempt's stage fields set, stage1's on
+    the iterations that linearized."""
     assert not any(it.timing_attributed for it in t.iterations)
     linearized = {1} | {i + 1 for i, it in enumerate(t.iterations)
                         if i > 0 and it.step_is_successful}
@@ -174,11 +154,16 @@ def test_calibration_attempts_where_jax_calibrates(jax_host,
             it.stage1_time_in_seconds)
 
 
+def test_every_iteration_timed_by_stage(jax_host, synthetic_problem):
+    """The JAX driver attributes the time of its one-dispatch attempts
+    by calibration fractions; the port times every stage by events."""
+    use_double, opts, j = jax_host
+    assert any(it.timing_attributed for it in j.iterations)
+    _timed_by_stage(_port_solve(synthetic_problem, opts))
+
+
 def test_measured_timing_routes_to_the_host_loop(synthetic_problem,
                                                  monkeypatch):
-    """timing_mode='measured': the host loop with every attempt a
-    calibration attempt."""
-    seen = _spy_calibrated(monkeypatch)
     loops = []
     real = tlm.optimize_lm
 
@@ -188,18 +173,16 @@ def test_measured_timing_routes_to_the_host_loop(synthetic_problem,
 
     monkeypatch.setattr(tlm, "optimize_lm", spy)
     t = _port_solve(synthetic_problem, dict(
-        _opts(True, "dense"), lm_loop="auto", timing_mode="measured"))
+        _opts(True, "dense"), lm_loop="fused", timing_mode="measured"))
     assert loops == ["host"]
-    assert seen == list(range(1, len(t.iterations)))
+    _timed_by_stage(t)
 
 
 # the rejects run: rho sits within 1e-4 of 1 on this problem, so this
 # threshold rejects the first steps (each restores the state and
 # backtracks with a larger lambda) before one is accepted
 @pytest.fixture(scope="module", params=[
-    dict(host_fused_attempt=False), dict(defer_stage_sync=False),
-    dict(min_relative_decrease=1.00005)],
-    ids=["separate", "no-defer", "rejects"])
+    dict(min_relative_decrease=1.00005)], ids=["rejects"])
 def jax_variant(request, synthetic_problem):
     opts = _opts(True, "dense", **request.param)
     return opts, j_bundle_adjust(copy.deepcopy(synthetic_problem),
@@ -210,9 +193,8 @@ def test_driver_variants_match_jax(jax_variant, synthetic_problem):
     opts, j = jax_variant
     t = _port_solve(synthetic_problem, opts)
     _same_run(t, j, True)
-    if "min_relative_decrease" in opts:
-        flags = [i.step_is_successful for i in t.iterations]
-        assert flags[1:4] == [False] * 3 and any(flags[4:])
+    flags = [i.step_is_successful for i in t.iterations]
+    assert flags[1:4] == [False] * 3 and any(flags[4:])
 
 
 def test_nan_landmark_raises_in_both_packages(synthetic_problem):
@@ -225,16 +207,12 @@ def test_nan_landmark_raises_in_both_packages(synthetic_problem):
         _port_solve(p, opts)
 
 
-@pytest.mark.parametrize("defer", [True, False])
-def test_stage1_failures_raise(synthetic_problem, defer):
-    """stage1's failure count raises FloatingPointError at linearize, or
-    with defer_stage_sync at the next attempt's sync; the Jacobian
-    evaluation is counted only when the check is deferred, as in the JAX
-    driver."""
+def test_stage1_failures_raise(synthetic_problem):
+    """stage1's failure count raises FloatingPointError at linearize,
+    before the Jacobian evaluation is counted, as in the JAX driver."""
     bp = t_bucketize(synthetic_problem, pow2_from=9)
-    opts = TOptions(**_opts(True, "dense", defer_stage_sync=defer,
-                            timing_calibration_interval=0))
-    lin = t_create(bp, opts, torch.float64, CPU)
+    lin = t_create(bp, TOptions(**_opts(True, "dense")), torch.float64,
+                   CPU)
     lin.summary = tlm.SolverSummary()
     lin.start_iteration(tlm.IterationSummary(iteration=1))
     lin.set_state(tlm.initial_state(bp, torch.float64, CPU))
@@ -245,24 +223,35 @@ def test_stage1_failures_raise(synthetic_problem, defer):
         return lins, ps, torch.tensor(3)
 
     lin.stage1 = failing
-    if defer:
+    with pytest.raises(FloatingPointError, match="3 observations"):
         lin.linearize()
-        assert lin.summary.num_jacobian_evaluations == 1
-        with pytest.raises(FloatingPointError, match="3 observations"):
-            lin.attempt(1e-4)
-    else:
-        with pytest.raises(FloatingPointError, match="3 observations"):
-            lin.linearize()
-        assert lin.summary.num_jacobian_evaluations == 0
+    assert lin.summary.num_jacobian_evaluations == 0
 
 
-@pytest.mark.parametrize("fused_attempt", [True, False])
-def test_non_finite_increment(synthetic_problem, monkeypatch,
-                              fused_attempt):
-    """An increment that is not finite makes an invalid step with lambda
-    *= vee and no state change. The attempt still applies the zeroed
-    increment and evaluates the cost (counted); the separate path skips
-    both (not counted), as the JAX driver does."""
+def test_non_finite_increment(synthetic_problem, monkeypatch):
+    """The first attempt's increment made NaN in both packages: an
+    invalid step with lambda *= vee and no state change, then a
+    successful one; the port's run and counts equal the JAX driver's
+    (its one-dispatch attempts: no calibration attempt)."""
+    import jax.numpy as jnp
+
+    from rootba_tpu.solver.lm import optimize_lm as j_optimize_lm
+
+    opts = _opts(True, "dense", max_num_iterations=3, function_tolerance=0.0)
+    jopts = JOptions(**opts, timing_calibration_interval=0)
+    jbp = j_bucketize(synthetic_problem, pow2_from=jopts.bucket_pow2_from)
+    jlin = j_create(jbp, jopts, np.float64)
+    lam0 = 1.0 / jopts.initial_trust_region_radius
+    solve = jlin.solve_pure
+
+    def nan_at_first_lambda(consts, lins, lam):
+        inc, s2, it, term = solve(consts, lins, lam)
+        return (jnp.where(lam == jnp.asarray(lam0, lam.dtype), jnp.nan,
+                          inc), s2, it, term)
+
+    jlin.solve_pure = nan_at_first_lambda
+    _, j = j_optimize_lm(jbp, jopts, linearizer=jlin)
+
     real = tsf.FlatSqrtLinearizer.lsolve
     calls = []
 
@@ -272,18 +261,15 @@ def test_non_finite_increment(synthetic_problem, monkeypatch,
         return (inc * np.nan if len(calls) == 1 else inc), s2, it, term
 
     monkeypatch.setattr(tsf.FlatSqrtLinearizer, "lsolve", nan_first)
-    opts = _opts(True, "dense", host_fused_attempt=fused_attempt,
-                 max_num_iterations=3, function_tolerance=0.0)
     t = _port_solve(synthetic_problem, opts)
     it1 = t.iterations[1]
     assert not it1.step_is_valid and not it1.step_is_successful
     assert t.iterations[2].step_is_successful
-    radius0 = 1.0 / TOptions().initial_trust_region_radius
     np.testing.assert_allclose(1.0 / it1.trust_region_radius,
-                               radius0 * TOptions().initial_vee)
-    assert t.num_linear_solves == 3
-    assert t.num_residual_evaluations == 1 + 3 - (not fused_attempt)
-    assert t.num_jacobian_evaluations == 2
+                               lam0 * TOptions().initial_vee)
+    _same_run(t, j, True)
+    assert (t.num_linear_solves, t.num_residual_evaluations,
+            t.num_jacobian_evaluations) == (3, 4, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -424,17 +410,6 @@ def test_auto_routes_above_fused_obs_threshold(synthetic_problem,
     assert loops == []
     _port_solve(synthetic_problem, dict(opts, fused_obs_threshold=n - 1))
     assert loops == ["host"]
-
-
-@pytest.mark.parametrize("threshold,mode", [(10**7, "full"), (10, "half")])
-def test_attempt_mode_follows_fused_obs_threshold(synthetic_problem,
-                                                  threshold, mode):
-    """The one-sync attempt up to fused_obs_threshold observations, the
-    two-part one above it, as the JAX driver chooses."""
-    bp = t_bucketize(synthetic_problem, pow2_from=9)
-    lin = t_create(bp, TOptions(fused_obs_threshold=threshold),
-                   torch.float64, CPU)
-    assert lin._attempt_mode == mode
 
 
 def test_iteration_callback_and_linearizer_reuse(synthetic_problem):

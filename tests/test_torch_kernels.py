@@ -515,9 +515,9 @@ def test_bsr_matvecs_match_cpu_on_card():
 
 @pytest.mark.cuda
 def test_fused_w_rows_match_cpu_on_card():
-    """The fused-W rows, built after the slot gather, on the card against
-    the CPU and against K2 on the gathered rows, pads included, f32 and
-    f64: chip_smoke.check_fused_w."""
+    """The fused-W rows, built by K2 after the slot gather, on the card
+    against the CPU, pads included, f32 and f64:
+    chip_smoke.check_fused_w."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     import chip_smoke
