@@ -592,10 +592,11 @@ def write_twin(name: str, seed: int = 17, npz: bool = False) -> Path:
 
 
 def run_cli(bal_path: Path, iters: int, tag: str, extra=(),
-            use_double: bool = False) -> dict:
+            use_double: bool = False, solver: str = None) -> dict:
     """One solve through the port's CLI entry point on the card (extra:
-    more CLI flags), float32 unless use_double; returns the ba_log.json
-    it wrote."""
+    more CLI flags), float32 unless use_double; solver forces the solver
+    type as the `bal_sc` / `bal_power_sc` executables do; returns the
+    ba_log.json it wrote."""
     from rootba_tpu_torch.cli.bal import run_app
 
     wd = WORK / tag
@@ -608,7 +609,7 @@ def run_cli(bal_path: Path, iters: int, tag: str, extra=(),
             "--max-num-iterations", str(iters),
             "--function-tolerance", "0", "--verbosity-level", "1",
             "--quiet", *PREPROCESS, *extra]
-    rc = run_app("chip smoke", argv)
+    rc = run_app("chip smoke", argv, forced_solver_type=solver)
     check(rc == 0, f"{tag}: run_app returned {rc}")
     check(log.exists(), f"{tag}: no ba_log.json written")
     return json.loads(log.read_text())
@@ -626,7 +627,7 @@ def summarize_log(d: dict, tag: str) -> dict:
                 iteration_s=d["iteration_time"][1:],
                 cg_iters=d["linear_solver_iterations"][1:],
                 stage_s={k: sum(d[k][1:]) for k in (
-                    "stage1_time", "stage2_time",
+                    "stage1_time", "stage2_time", "prepare_time",
                     "solve_reduced_system_time", "back_substitution_time",
                     "residual_evaluation_time")})
 
@@ -634,7 +635,12 @@ def summarize_log(d: dict, tag: str) -> dict:
 # phase 5's small solves: (options, sqrt_flat globals patched,
 # precisions) of each: the default (dense RCS), BSR mode with the packed
 # and with the half table, the host LM driver, and BSR mode with the
-# fused-W stream factors
+# fused-W stream factors; then SCHUR_COMPLEMENT in dense, BSR and scatter
+# mode, under the DIAGONAL and POWER_SCHUR_COMPLEMENT preconditioners
+# and through the host LM driver, and PoBA with dense E0, BSR E0 and the
+# implicit sweep
+SC = dict(solver_type="SCHUR_COMPLEMENT")
+POBA = dict(solver_type="POWER_SCHUR_COMPLEMENT")
 SMALL_MODES = {
     "dense": ({}, {}, (True, False)),
     "bsr": (dict(sqrt_rcs_mode="bsr"), {}, (True, False)),
@@ -642,20 +648,49 @@ SMALL_MODES = {
                 (True, False)),
     "host": (dict(lm_loop="host"), {}, (True,)),
     "bsr_fused_w": (dict(sqrt_rcs_mode="bsr"), dict(_FUSED_W_MIN_BYTES=0),
-                    (True, False))}
+                    (True, False)),
+    "sc_dense": (SC, {}, (True, False)),
+    "sc_bsr": (dict(SC, dense_rcs_max_cameras=4), {}, (True, False)),
+    "sc_scatter": (dict(SC, dense_rcs_max_cameras=0), {}, (True, False)),
+    "sc_diagonal": (dict(SC, preconditioner_type="DIAGONAL"), {},
+                    (True, False)),
+    "sc_power": (dict(SC, preconditioner_type="POWER_SCHUR_COMPLEMENT"), {},
+                 (True, False)),
+    "sc_host": (dict(SC, lm_loop="host"), {}, (True, False)),
+    "poba_dense": (POBA, {}, (True, False)),
+    "poba_bsr": (dict(POBA, dense_rcs_max_cameras=4), {}, (True, False)),
+    "poba_implicit": (dict(POBA, dense_rcs_max_cameras=0), {},
+                      (True, False))}
 
 
-def small_cross_check() -> None:
+def solver_options(**kw):
+    """SolverOptions from plain values (enum options by name)."""
+    from rootba_tpu_torch.config.options import (
+        PreconditionerType,
+        SolverOptions,
+        SolverType,
+    )
+
+    enums = {"solver_type": SolverType,
+             "preconditioner_type": PreconditionerType}
+    return SolverOptions(**{k: enums[k](v) if k in enums else v
+                            for k, v in kw.items()})
+
+
+def small_cross_check(only=None) -> None:
     """A small solve (12 cameras) on the card against the same solve on
-    the CPU through the plain twins, in each of SMALL_MODES: float64 to
-    rel 1e-8 with identical accept/reject and CG counts; float32 final
-    cost to rel 1e-4."""
+    the CPU through the plain twins, in each of SMALL_MODES (or the
+    modes named in `only`): float64 to rel 1e-8 with identical
+    accept/reject and CG (power-series) counts; float32 final cost to
+    rel 1e-4."""
     from rootba_tpu_torch.bal.synthetic import generate_synthetic_bal
-    from rootba_tpu_torch.config.options import SolverOptions
     from rootba_tpu_torch.solver import sqrt_flat
     from rootba_tpu_torch.solver.lm import bundle_adjust
 
     for mode, (kw, globs, precisions) in SMALL_MODES.items():
+        if only is not None and mode not in only:
+            continue
+        sqrt_mode = "solver_type" not in kw
         for use_double in precisions:
             out = {}
             for dev in ("cuda", "cpu"):
@@ -664,17 +699,19 @@ def small_cross_check() -> None:
                 p.normalize(100.0)
                 p.perturb(0.001, 0.05, 0.05, 38401)
                 p.filter_obs(0.1)
-                opts = SolverOptions(use_double=use_double,
-                                     verbosity_level=0,
-                                     max_num_iterations=20,
-                                     initial_trust_region_radius=10.0,
-                                     function_tolerance=1e-5, **kw)
+                opts = solver_options(use_double=use_double,
+                                      verbosity_level=0,
+                                      max_num_iterations=20,
+                                      initial_trust_region_radius=10.0,
+                                      function_tolerance=1e-5, **kw)
                 with patched(sqrt_flat, **globs), LoopSpy() as loops, \
                         FactorSpy() as factors:
                     s = bundle_adjust(p, opts, device=dev)
+                # the SC solvers build no W factors
+                kinds = ({"fused" if globs else "tables"} if sqrt_mode
+                         else set())
                 check(loops.loops == [kw.get("lm_loop", "fused")]
-                      and set(factors.kinds) == {
-                          "fused" if globs else "tables"},
+                      and set(factors.kinds) == kinds,
                       f"small {mode} solve on {dev}: LM loop "
                       f"{loops.loops}, W factors {set(factors.kinds)}")
                 out[dev] = ([i.cost.all.error for i in s.iterations],
@@ -687,6 +724,7 @@ def small_cross_check() -> None:
             print(f"[phase 5] {what}: final cost {cg[-1]:.10g} (card) vs "
                   f"{cc[-1]:.10g} (cpu), rel {rel:.2e}; {len(cg)}/"
                   f"{len(cc)} iterations; CG {ig} / {ic}", flush=True)
+            check(cg[-1] < cg[0], f"{what}: cost did not decrease")
             if use_double:
                 check(fg == fc and ig == ic and len(cg) == len(cc),
                       f"{what}: accept/reject or CG counts differ between "
@@ -780,14 +818,16 @@ def k3_bound(n_rows: int, lanes: int, iters: int, resets: int) -> dict:
     return bound(nbytes, flops)
 
 
-def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
-    """One solve of the main path through the CLI, with the launch
-    counts set to 0 just before it and read just after, under a profiler
-    trace of the card: (its ba_log, {kernel: launches}, {kernel: device
-    ms summed over the solve}). Each kernel's launches in the trace must
-    equal its wrapper's count. The trace's warm-up step (one small
-    kernel) and TRACE_MARGIN_S at the active step's edges keep it from
-    losing the solve's first or last launch."""
+def counted_run(bal_path: Path, iters: int, tag: str, extra=(),
+                run=None) -> tuple:
+    """One solve of the main path through the CLI (or run(), a callable
+    that solves and returns the ba_log), with the launch counts set to 0
+    just before it and read just after, under a profiler trace of the
+    card: (its ba_log, {kernel: launches}, {kernel: device ms summed
+    over the solve}). Each kernel's launches in the trace must equal its
+    wrapper's count. The trace's warm-up step (one small kernel) and
+    TRACE_MARGIN_S at the active step's edges keep it from losing the
+    solve's first or last launch."""
     import time
 
     import torch
@@ -804,7 +844,8 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=()) -> tuple:
         prof.step()
         time.sleep(TRACE_MARGIN_S)
         kernels.reset_launches()
-        log = run_cli(bal_path, iters, tag, extra)
+        log = run() if run is not None else run_cli(bal_path, iters, tag,
+                                                    extra)
         launches = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
@@ -1385,6 +1426,361 @@ def bsr_operator_rows(system: dict, smi: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# in-process solves of one twin on one host setup
+
+
+class SharedSetup:
+    """One load, one `bucketize` and one build of each host index for the
+    in-process solves of one twin: while active, bundle_adjust's
+    bucketize returns `bp`, and the stream and BSR index builders of
+    bal.bucketing return their first result for the same buckets and
+    arguments (the device uploads still run per linearizer). The twin is
+    loaded as the CLI loads it (bench.py's preprocessing)."""
+
+    BUILDERS = ("build_pair_stream", "build_cam_stream", "build_bsr_matvec")
+
+    def __init__(self, path: Path):
+        from rootba_tpu_torch.bal.bucketing import bucketize
+        from rootba_tpu_torch.bal.problem import load_normalized_bal_problem
+        from rootba_tpu_torch.cli.common import parse_bal_app_arguments
+
+        t = time.monotonic()
+        self.options = parse_bal_app_arguments("chip smoke", [
+            "--input", str(path), "--quiet", *PREPROCESS])[0]
+        self.problem = load_normalized_bal_problem(self.options.dataset)
+        self.load_s = time.monotonic() - t
+        t = time.monotonic()
+        self.bp = bucketize(self.problem,
+                            pow2_from=self.options.solver.bucket_pow2_from)
+        self.bucketize_s = time.monotonic() - t
+        self.memo = {}
+        self.builds_s = 0.0  # host seconds of the builders' first calls
+        self._saved = []
+
+    def _memo(self, name, fn):
+        def wrapped(*a, **kw):
+            key = (name, tuple(id(x) if hasattr(x, "__len__") else x
+                               for x in a), tuple(sorted(kw.items())))
+            if key not in self.memo:
+                t = time.monotonic()
+                self.memo[key] = (fn(*a, **kw), a)  # a keeps the ids live
+                self.builds_s += time.monotonic() - t
+            return self.memo[key][0]
+        return wrapped
+
+    def __enter__(self):
+        from rootba_tpu_torch.bal import bucketing
+        from rootba_tpu_torch.solver import lm
+
+        bp = self.bp
+        self._saved = [(lm, "bucketize", lm.bucketize)] + [
+            (bucketing, k, getattr(bucketing, k)) for k in self.BUILDERS]
+        lm.bucketize = lambda *a, **kw: bp
+        for k in self.BUILDERS:
+            setattr(bucketing, k, self._memo(k, getattr(bucketing, k)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, k, v in self._saved:
+            setattr(mod, k, v)
+        return False
+
+    def solver(self, **kw):
+        """The CLI's solver options of the twin, with kw (enum options by
+        name) on top; verbosity 1, no function tolerance."""
+        import copy
+
+        from rootba_tpu_torch.config.options import (
+            PreconditionerType,
+            SolverType,
+        )
+
+        opts = copy.deepcopy(self.options.solver)
+        opts.verbosity_level, opts.function_tolerance = 1, 0.0
+        enums = {"solver_type": SolverType,
+                 "preconditioner_type": PreconditionerType}
+        for k, v in kw.items():
+            setattr(opts, k, enums[k](v) if k in enums else v)
+        return opts
+
+    def solve(self, **kw) -> dict:
+        """bundle_adjust on the card with solver(**kw); its ba_log."""
+        from rootba_tpu_torch.log.ba_log import build_log_dict
+        from rootba_tpu_torch.solver.lm import bundle_adjust
+
+        with self:
+            return build_log_dict(bundle_adjust(self.problem,
+                                                self.solver(**kw),
+                                                device="cuda"))
+
+    def linearizer(self, dtype, **kw):
+        """A linearizer of the twin on the card and the initial state."""
+        from rootba_tpu_torch.solver.lm import (
+            create_linearizer,
+            initial_state,
+        )
+
+        from rootba_tpu_torch.utils.device import resolve_device
+
+        with self:
+            lin = create_linearizer(self.bp, self.solver(**kw), dtype,
+                                    resolve_device("cuda"))
+        st = initial_state(self.bp, dtype, lin.device)
+        return lin, st
+
+
+class MatvecSpy:
+    """While a solve runs, records the regime of each BSR CG operator
+    that `mod` (solver.explicit_sc or solver.sqrt_flat) builds: the
+    symmetric flag passed to bsr_table_matvec (True = half table)."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.orig = mod.bsr_table_matvec
+        self.regimes = []
+
+    def _spy(self, table, diag, bsr, symmetric):
+        self.regimes.append(bool(symmetric))
+        return self.orig(table, diag, bsr, symmetric)
+
+    def __enter__(self):
+        self.mod.bsr_table_matvec = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bsr_table_matvec = self.orig
+        return False
+
+
+def _tensors(x) -> list:
+    """The tensors in a stage's output, in a fixed order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def repeats_bit_for_bit(fn, what: str) -> str:
+    """fn() twice: every tensor of the second output equal, bit for bit,
+    to the first's (right-hand side, preconditioner factors, tables)."""
+    import torch
+
+    first = [t.clone() for t in _tensors(fn())]
+    again = _tensors(fn())
+    check(len(first) == len(again) > 0, f"{what}: outputs differ in form")
+    bad = [i for i, (a, b) in enumerate(zip(first, again))
+           if not torch.equal(a, b)]
+    n = sum(t.numel() for t in first)
+    check(not bad, f"{what}: {len(bad)} of {len(first)} output tensors "
+                   f"differ between two runs on the same input (indices "
+                   f"{bad[:8]})")
+    return f"{len(first)} tensors, {n} values bit-equal"
+
+
+def determinism_phase(final_setup: "SharedSetup", traf: Path) -> None:
+    """Stage1 and stage2 twice on the same input, bit for bit: final-3068
+    in SQUARE_ROOT BSR mode (packed table) in f32 and f64 and in SC BSR
+    mode (f32), trafalgar-257 in SQUARE_ROOT dense mode (f32)."""
+    import torch
+
+    cases = (("final-3068 SQUARE_ROOT BSR f32", final_setup, torch.float32,
+              {}, "bsr"),
+             ("final-3068 SQUARE_ROOT BSR f64", final_setup, torch.float64,
+              {}, "bsr"),
+             ("final-3068 SC BSR f32", final_setup, torch.float32,
+              dict(solver_type="SCHUR_COMPLEMENT"), "bsr"),
+             ("trafalgar-257 SQUARE_ROOT dense f32", SharedSetup(traf),
+              torch.float32, {}, "dense"))
+    for what, setup, dtype, kw, mode in cases:
+        t = time.monotonic()
+        lin, st = setup.linearizer(dtype, use_double=dtype == torch.float64,
+                                   **kw)
+        explicit = getattr(lin, "explicit_rcs", getattr(lin, "dense_rcs",
+                                                        False))
+        check(lin.bsr_rcs == (mode == "bsr") and explicit == (
+            mode == "dense") and not lin.bsr_sym,
+              f"{what}: route (bsr {lin.bsr_rcs}, sym {lin.bsr_sym})")
+        s1 = repeats_bit_for_bit(lambda: lin.stage1(st.cams, st.lm_ps),
+                                 f"{what} stage1")
+        lins = lin.stage1(st.cams, st.lm_ps)[0]
+        lam = torch.full((), 1e-4, dtype=dtype, device=lin.device)
+        s2 = repeats_bit_for_bit(lambda: lin.stage2(lins, lam),
+                                 f"{what} stage2")
+        torch.cuda.synchronize()
+        print(f"[phase 9] {what}: stage1 twice: {s1}; stage2 twice: {s2} "
+              f"({time.monotonic() - t:.1f} s)", flush=True)
+        del lin, st, lins
+        torch.cuda.empty_cache()
+
+
+def path_readout(log: dict, wall: float, peak: int) -> dict:
+    """Seconds per LM iteration, prepare (stage2) and linear-solve time
+    per iteration, CG counts, costs, wall and peak device memory of a
+    solve's ba_log."""
+    its = log["iteration_time"][1:]
+    n = len(its)
+    prep = log["prepare_time"][1:]
+    st2 = log["stage2_time"][1:]
+    return dict(s_per_iteration=sum(its) / n, iterations=n,
+                prepare_s_per_iteration=sum(prep) / n,
+                stage2_s_per_iteration=sum(st2) / n,
+                linear_solve_s=sum(log["solve_reduced_system_time"][1:]),
+                linear_solve_s_per_iteration=sum(
+                    log["solve_reduced_system_time"][1:]) / n,
+                stage1_s=sum(log["stage1_time"][1:]),
+                cg_iterations=log["linear_solver_iterations"][1:],
+                costs=log["cost"], accepted=log["step_is_successful"],
+                wall_s=wall, peak_mib=peak / 2**20,
+                solver_type=log["_static"]["solver"]["solver_type"])
+
+
+def timed_path(tag: str, fn) -> tuple:
+    """(log, readout) of one solve fn() with the peak memory reset and
+    the host clock around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    log = fn()
+    wall = time.monotonic() - t
+    summarize_log(log, tag)
+    r = path_readout(log, wall, torch.cuda.max_memory_allocated())
+    print(f"[{tag}] {r['solver_type']}: {r['s_per_iteration']:.4f} s per "
+          f"LM iteration ({r['iterations']}), prepare "
+          f"{r['prepare_s_per_iteration']:.4f} s and linear solve "
+          f"{r['linear_solve_s_per_iteration']:.4f} s per iteration, CG "
+          f"{r['cg_iterations']}, costs {r['costs']}, accepted "
+          f"{r['accepted']}, wall {wall:.3f} s, peak "
+          f"{r['peak_mib']:.1f} MiB", flush=True)
+    return log, r
+
+
+def held_logs(what: str, log: dict, ref: dict, tol: float,
+              cg: bool = True) -> float:
+    """log's costs within rel tol of ref's over ref's iterations, with
+    the same accept/reject flags (and CG counts)."""
+    k = len(ref["cost"])
+    rel = max(abs(x - y) / abs(y) for x, y in zip(log["cost"][:k],
+                                                  ref["cost"]))
+    check(len(log["cost"]) >= k and rel < tol
+          and log["step_is_successful"][:k] == ref["step_is_successful"]
+          and (not cg or log["linear_solver_iterations"][:k]
+               == ref["linear_solver_iterations"]),
+          f"{what}: costs {log['cost'][:k]}, accepted "
+          f"{log['step_is_successful'][:k]}, CG "
+          f"{log['linear_solver_iterations'][:k]} against {ref['cost']}, "
+          f"{ref['step_is_successful']}, {ref['linear_solver_iterations']}"
+          f": rel {rel} (tol {tol:g})")
+    return rel
+
+
+def sc_poba_phase(lady: Path, traf: Path, final: Path,
+                  final_setup: "SharedSetup", errs: dict) -> tuple:
+    """Phases 10 (SCHUR_COMPLEMENT) and 11 (PoBA): the new solvers on the
+    ladybug-49, trafalgar-257 and final-3068 twins. Returns ({path:
+    readout}, {solver and precision: TwinCheck stats} of the final-3068
+    checks); the f32 check's K1 error goes into errs."""
+    import torch
+
+    from rootba_tpu_torch.ops import kernels
+    from rootba_tpu_torch.solver import explicit_sc
+
+    SCT, PBT = "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"
+    out = {}
+    checked = {}
+
+    def only_k1(tag, n):
+        for k in n:
+            check((n[k] > 0) == (k == "outer81_fold"),
+                  f"{tag}: kernel {k} launched {n[k]} times {n}")
+
+    # phase 10: bal_sc, dense RCS, through the CLI
+    for tag, bal, iters in (("sc_ladybug", lady, 20),
+                            ("sc_trafalgar", traf, 5)):
+        kernels.reset_launches()
+        _, out[tag] = timed_path(f"phase 10 {tag}", lambda: run_cli(
+            bal, iters, tag, solver=SCT))
+        only_k1(tag, dict(kernels.LAUNCHES))
+    # final-3068: BSR with the packed table, 3 timed f32 iterations
+    with MatvecSpy(explicit_sc) as spy:
+        kernels.reset_launches()
+        fl, out["sc_final3068"] = timed_path(
+            "phase 10 sc_final3068", lambda: run_cli(final, 3,
+                                                     "sc_final3068",
+                                                     solver=SCT))
+    only_k1("sc_final3068", dict(kernels.LAUNCHES))
+    check(spy.regimes and set(spy.regimes) == {False},
+          f"sc_final3068: BSR operators by regime {spy.regimes}")
+    # one untimed f32 iteration in process, every K1 call held against
+    # its twin at this path's shapes
+    with TwinCheck() as tw:
+        final_setup.solve(solver_type=SCT, max_num_iterations=1)
+    print(f"[phase 10] final-3068 SC f32, 1 untimed LM iteration with every "
+          f"K1 call held against its twin: "
+          f"{tw.report('final3068 SC f32', expect=('outer81_fold',))}",
+          flush=True)
+    checked["sc_float32"] = tw.stats
+    # f64, 2 iterations: the packed table against the half table
+    f64 = {}
+    for mode, extra, sym in (("packed", {}, False),
+                             ("half", dict(bsr_pack_max_gb=0.0), True)):
+        with MatvecSpy(explicit_sc) as spy:
+            f64[mode], out[f"sc_final3068_f64_{mode}"] = timed_path(
+                f"phase 10 sc_final3068_f64_{mode}",
+                lambda: final_setup.solve(solver_type=SCT, use_double=True,
+                                          max_num_iterations=2, **extra))
+        check(spy.regimes and set(spy.regimes) == {sym},
+              f"sc final3068 f64 {mode}: regimes {spy.regimes}")
+    rel = held_logs("sc final3068 f64 packed vs half", f64["packed"],
+                    f64["half"], 1e-8)
+    print(f"[phase 10] final-3068 SC f64: packed vs half table identical "
+          f"accept/reject and CG counts, costs within rel {rel:.2e} (tol "
+          f"1e-8)", flush=True)
+    rel = held_logs("sc final3068 f32 vs f64", fl, f64["packed"], 2e-3,
+                    cg=False)
+    print(f"[phase 10] final-3068 SC f32 vs f64 over 2 iterations: costs "
+          f"within rel {rel:.2e} (tol 2e-3)", flush=True)
+
+    # phase 11: bal_power_sc on ladybug, dense E0, f32 and f64
+    for use_double in (False, True):
+        tag = f"poba_ladybug{'_f64' if use_double else ''}"
+        kernels.reset_launches()
+        _, out[tag] = timed_path(f"phase 11 {tag}", lambda: run_cli(
+            lady, 10, tag, use_double=use_double, solver=PBT))
+        only_k1(tag, dict(kernels.LAUNCHES))
+    # final-3068: BSR E0, 2 f64 iterations timed, then once more with
+    # every K1 call held against its twin (the same run)
+    with MatvecSpy(explicit_sc) as spy:
+        kernels.reset_launches()
+        pl, out["poba_final3068_f64"] = timed_path(
+            "phase 11 poba_final3068_f64", lambda: final_setup.solve(
+                solver_type=PBT, use_double=True, max_num_iterations=2))
+    only_k1("poba_final3068_f64", dict(kernels.LAUNCHES))
+    check(spy.regimes and set(spy.regimes) == {False},
+          f"poba final3068: E0 operators by regime {spy.regimes}")
+    with TwinCheck() as tw:
+        pc = final_setup.solve(solver_type=PBT, use_double=True,
+                               max_num_iterations=2)
+    rel = held_logs("poba final3068 f64 checked vs timed", pc, pl, 1e-8)
+    print(f"[phase 11] final-3068 PoBA f64 (BSR E0, packed), 2 LM "
+          f"iterations once more with every K1 call held against its twin "
+          f"(the timed run's flags and term counts, costs within rel "
+          f"{rel:.2e}): "
+          f"{tw.report('final3068 PoBA f64', expect=('outer81_fold',))}",
+          flush=True)
+    checked["poba_float64"] = tw.stats
+    errs["outer81_fold"] = max(
+        errs["outer81_fold"],
+        checked["sc_float32"]["outer81_fold"]["max_abs_err"])
+    torch.cuda.empty_cache()
+    return out, checked
+
+
 def final4585_phase() -> dict:
     """Phase 8: the final-4585 twin (9.1M observations, above
     fused_obs_threshold) through the CLI's main path and the routes it
@@ -1392,16 +1788,10 @@ def final4585_phase() -> dict:
     read just after. Returns, for the kernel table, the launch counts and
     attempts of 8a and 8c, and the twin checks (TwinCheck.stats) of 8a
     (float64) and of 8c's untimed solve (float32)."""
-    import copy
-
     import torch
 
-    from rootba_tpu_torch.bal.problem import load_normalized_bal_problem
-    from rootba_tpu_torch.cli.common import parse_bal_app_arguments
-    from rootba_tpu_torch.log.ba_log import build_log_dict
     from rootba_tpu_torch.ops import kernels
     from rootba_tpu_torch.solver import sqrt_flat
-    from rootba_tpu_torch.solver.lm import bundle_adjust
 
     t = time.monotonic()
     big = write_twin("final4585", npz=True)
@@ -1475,26 +1865,23 @@ def final4585_phase() -> dict:
           f"checks): {readout('final4585_f64', la, wall, peak_a)}, "
           f"launches {n}; {tw.report('final4585 f64')}", flush=True)
 
+    # 8b, 8d and 8c share one load, one bucketize and one build of each
+    # host index (SharedSetup), which the CLI run 8a pays on its own
+    shared = SharedSetup(big)
+    print(f"[phase 8] final-4585 twin loaded in {shared.load_s:.3f} s, "
+          f"bucketized in {shared.bucketize_s:.3f} s (shared by 8b, 8d "
+          f"and 8c)", flush=True)
+
     # 8b: the same problem in float64 through the routes that the
     # final-3068 phases check: the attempt loop, the packed table and W
-    # tables by K2, in process on the problem as the CLI loads it
-    parsed = parse_bal_app_arguments("chip smoke", [
-        "--input", str(big), "--quiet", *PREPROCESS])
-    options = parsed[0]
-    t = time.monotonic()
-    problem = load_normalized_bal_problem(options.dataset)
-    load_s = time.monotonic() - t
-    opts = copy.deepcopy(options.solver)
-    opts.use_double, opts.max_num_iterations = True, 2
-    opts.function_tolerance, opts.verbosity_level = 0.0, 1
-    opts.lm_loop, opts.bsr_pack_max_gb = "fused", 64.0
+    # tables by K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with patched(sqrt_flat, _FUSED_W_MIN_BYTES=1 << 62), LoopSpy() as loops, \
             RouteSpy() as spy, FactorSpy() as factors:
-        lb = build_log_dict(bundle_adjust(copy.deepcopy(problem), opts,
-                                          device="cuda"))
+        lb = shared.solve(use_double=True, max_num_iterations=2,
+                          lm_loop="fused", bsr_pack_max_gb=64.0)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak_b = torch.cuda.max_memory_allocated()
@@ -1502,8 +1889,8 @@ def final4585_phase() -> dict:
           False, "tables", True)
     rb = readout("final4585_f64_packed", lb, wall, peak_b, "bundle_adjust")
     print(f"[phase 8b] final-4585 twin f64, attempt loop, BSR packed "
-          f"table, W tables (K2), 2 LM iterations (loaded in "
-          f"{load_s:.3f} s): {rb}, launches {n}", flush=True)
+          f"table, W tables (K2), 2 LM iterations (index builds "
+          f"{shared.builds_s:.3f} s): {rb}, launches {n}", flush=True)
     check(len(lb["cost"]) == len(la["cost"]), "final4585: 8b's length")
     rel = held("f64 packed route vs the default route", lb, la, 1e-8)
     print(f"[phase 8b] default route vs packed route: identical "
@@ -1514,15 +1901,11 @@ def final4585_phase() -> dict:
 
     # 8d: 8a's route once more in process, without the twin checks, so
     # that its times and peak are the route's own
-    opts = copy.deepcopy(options.solver)
-    opts.use_double, opts.max_num_iterations = True, 2
-    opts.function_tolerance, opts.verbosity_level = 0.0, 1
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        ld = build_log_dict(bundle_adjust(copy.deepcopy(problem), opts,
-                                          device="cuda"))
+        ld = shared.solve(use_double=True, max_num_iterations=2)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -1539,14 +1922,11 @@ def final4585_phase() -> dict:
     # 8c, first untimed: float32, default options, 1 LM iteration in
     # process with every K1 and K2 call held against its twin at this
     # route's shapes (the host LM driver, the packed table, W tables)
-    opts = copy.deepcopy(options.solver)
-    opts.use_double, opts.max_num_iterations = False, 1
-    opts.function_tolerance, opts.verbosity_level = 0.0, 1
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
             TwinCheck() as tw32:
-        le = build_log_dict(bundle_adjust(problem, opts, device="cuda"))
+        le = shared.solve(use_double=False, max_num_iterations=1)
     wall = time.monotonic() - t
     route("final4585 f32 checked", le, loops, spy, factors,
           dict(kernels.LAUNCHES), "host", False, "tables", True)
@@ -1554,25 +1934,26 @@ def final4585_phase() -> dict:
           f"untimed LM iteration with every K1 and K2 call held against "
           f"its twin ({wall:.3f} s): {tw32.report('final4585 f32')}",
           flush=True)
-    problem = None
 
-    # 8c: float32, default options, 3 LM iterations, timed: the host LM
-    # driver, the packed table and W tables, so K1 and K2
+    # 8c: float32, default options, 3 LM iterations, timed, in process
+    # on the shared setup: the host LM driver, the packed table and W
+    # tables, so K1 and K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        lc = run_cli(big, 3, "final4585_f32")
+        lc = shared.solve(use_double=False, max_num_iterations=3)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     attempts = route("final4585 f32", lc, loops, spy, factors, n, "host",
                      False, "tables", True)
     counts["final4585"] = (n, attempts)
-    print(f"[phase 8c] final-4585 twin f32, default options (host LM "
-          f"driver, BSR packed table, W tables), 3 LM iterations: "
-          f"{readout('final4585_f32', lc, wall, peak)}, launches {n}",
-          flush=True)
+    print(f"[phase 8c] final-4585 twin f32, default options in process "
+          f"(host LM driver, BSR packed table, W tables), 3 LM iterations: "
+          f"{readout('final4585_f32', lc, wall, peak, 'bundle_adjust')}, "
+          f"launches {n}", flush=True)
+    shared = None
     rel = held("f32 vs f64", lc, la, 2e-3, cg=False)
     print(f"[phase 8c] f32 vs f64 (8a) over {len(la['cost']) - 1} "
           f"iterations: identical accept/reject, costs within rel "
@@ -1580,8 +1961,27 @@ def final4585_phase() -> dict:
     return counts, {"float64": tw.stats, "float32": tw32.stats}
 
 
-def main() -> int:
+PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
+          "final3068", "determinism", "sc", "final4585", "traced")
+
+
+def main(argv=None) -> int:
+    """The whole smoke, or with `--only P,Q` (names in PHASES) the kernel
+    build and the phases named: a partial run prints no result line."""
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    help=f"comma-separated subset of {', '.join(PHASES)}")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and not only <= set(PHASES):
+        ap.error(f"unknown phases {sorted(only - set(PHASES))}")
+
+    def want(phase: str) -> bool:
+        return only is None or phase in only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1598,9 +1998,11 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
     last = [t0]
+    walls = {}
 
     def lap(phase: str) -> None:
         now = time.monotonic()
+        walls[phase] = now - last[0]
         print(f"[{phase}] phase wall {now - last[0]:.1f} s (run so far "
               f"{now - t0:.1f} s)", flush=True)
         last[0] = now
@@ -1608,8 +2010,48 @@ def main() -> int:
     kernels.build_all(verbose=True)
     print(f"[phase 1] built {', '.join(kernels.SOURCES)} in "
           f"{time.monotonic() - t0:.1f} s (parallel nvcc)", flush=True)
-
     lap("phase 1")
+    if only is not None:
+        return partial_run(only, want, lap, dev)
+    return full_run(smi, lap, walls, dev, t0)
+
+
+def partial_run(only, want, lap, dev) -> int:
+    """A rehearsal of the phases in `only` (their checks hold as in the
+    whole run); no result line."""
+    errs = {"outer81_fold": 0.0, "w_build": 0.0}
+    if want("kernels"):
+        errs = check_kernels(dev)
+        check_bsr(dev)
+        check_fused_w(dev)
+        lap("phase 2")
+    if want("small"):
+        small_cross_check()
+        lap("phase 5")
+    lady, traf, final = (write_twin(n) if want(p) or want("sc") else None
+                         for n, p in (("ladybug", "ladybug"),
+                                      ("trafalgar", "trafalgar"),
+                                      ("final3068", "final3068")))
+    if want("determinism") or want("sc"):
+        final_setup = SharedSetup(final)
+        if want("determinism"):
+            determinism_phase(final_setup, traf)
+            lap("phase 9")
+        if want("sc"):
+            sc_poba_phase(lady, traf, final, final_setup, errs)
+            lap("phases 10-11")
+    if want("final4585"):
+        final4585_phase()
+        lap("phase 8")
+    print(json.dumps({"partial": sorted(only)}))
+    return 0
+
+
+def full_run(smi, lap, walls, dev, t0) -> int:
+    import torch
+
+    from rootba_tpu_torch.ops import kernels
+
     errs = check_kernels(dev)
     check_bsr(dev)
     check_fused_w(dev)
@@ -1666,7 +2108,8 @@ def main() -> int:
         run_cli(traf, 1, "trafalgar_record")
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # the kept inputs, not the solve's
-    ts = summarize_log(run_cli(traf, 5, "trafalgar_timed"), "trafalgar")
+    traf_log = run_cli(traf, 5, "trafalgar_timed")
+    ts = summarize_log(traf_log, "trafalgar")
     per_it = sum(ts["iteration_s"]) / len(ts["iteration_s"])
     print(f"[phase 4] trafalgar-257 twin f32, 5 LM iterations: "
           f"{per_it:.4f} s per LM iteration (iteration times "
@@ -1820,6 +2263,18 @@ def main() -> int:
     f64 = imp = ref = None
     lap("phase 7b")
 
+    # phase 9: stage1 and stage2 repeat bit for bit on the card
+    final_setup = SharedSetup(final)
+    print(f"[phase 9] final-3068 twin loaded in {final_setup.load_s:.3f} s, "
+          f"bucketized in {final_setup.bucketize_s:.3f} s (shared by phases "
+          f"9-11 and the SC/PoBA paths of phase 6)", flush=True)
+    determinism_phase(final_setup, traf)
+    lap("phase 9")
+
+    # phases 10 and 11: SCHUR_COMPLEMENT and PoBA
+    sc_out, sc_checked = sc_poba_phase(lady, traf, final, final_setup, errs)
+    lap("phases 10-11")
+
     phase8, tw4585 = final4585_phase()
     for k, st in tw4585["float32"].items():
         errs[k] = max(errs[k], st["max_abs_err"])
@@ -1830,25 +2285,40 @@ def main() -> int:
     paths = {}
     logs = {}
     final_spy = RouteSpy(keep=True)
-    for path, bal, iters, k3, extra in (
-            ("ladybug", lady, 20, "pcg_dense_cluster", ()),
-            ("trafalgar126", mid, 5, "pcg_dense_half", ()),
-            ("trafalgar", traf, 5, None, ()),
-            ("trafalgar_on", traf, 3, "pcg_dense_grid", K3_ON),
-            ("final3068", final, 2, None, ())):
+    SCT, PBT = "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"
+    sqrt_k = ("outer81_fold", "w_build")
+    for path, bal, iters, kern, extra, run in (
+            ("ladybug", lady, 20, sqrt_k + ("pcg_dense_cluster",), (), None),
+            ("trafalgar126", mid, 5, sqrt_k + ("pcg_dense_half",), (), None),
+            ("trafalgar", traf, 5, sqrt_k, (), None),
+            ("trafalgar_on", traf, 3, sqrt_k + ("pcg_dense_grid",), K3_ON,
+             None),
+            ("final3068", final, 2, sqrt_k, (), None),
+            # the SC and PoBA paths: K1 only
+            ("sc_ladybug", lady, 5, ("outer81_fold",), (),
+             lambda: run_cli(lady, 5, "sc_ladybug_counted", solver=SCT)),
+            ("sc_trafalgar", traf, 3, ("outer81_fold",), (),
+             lambda: run_cli(traf, 3, "sc_trafalgar_counted", solver=SCT)),
+            ("sc_final3068", final, 2, ("outer81_fold",), (),
+             lambda: final_setup.solve(solver_type=SCT,
+                                       max_num_iterations=2)),
+            ("poba_ladybug", lady, 5, ("outer81_fold",), (),
+             lambda: run_cli(lady, 5, "poba_ladybug_counted", solver=PBT)),
+            ("poba_final3068_f64", final, 2, ("outer81_fold",), (),
+             lambda: final_setup.solve(solver_type=PBT, use_double=True,
+                                       max_num_iterations=2))):
         if path == "final3068":
             # keeps the last stage2's system for the operator timing
             with final_spy:
                 log, n, ms = counted_run(bal, iters, path, extra)
         else:
-            log, n, ms = counted_run(bal, iters, path, extra)
+            log, n, ms = counted_run(bal, iters, path, extra, run=run)
         logs[path] = log
         paths[path] = (n, ms)
         summarize_log(log, path)
         for k in n:
-            want = k in ("outer81_fold", "w_build") or k == k3
-            check((n[k] > 0) == want, f"{path}: kernel {k} launched "
-                                      f"{n[k]} times {n}")
+            check((n[k] > 0) == (k in kern), f"{path}: kernel {k} launched "
+                                             f"{n[k]} times {n}")
         print(f"[phase 6] {path}: {iters} LM iterations, launches {n}, "
               f"device ms summed over the solve "
               f"{ {k: round(v, 5) for k, v in ms.items()} }", flush=True)
@@ -1863,6 +2333,22 @@ def main() -> int:
         rel = abs(cost / TRAFALGAR126_CARD_FINAL_COST - 1)
         check(rel < 1e-4, f"trafalgar126: final cost {cost} is rel {rel} "
                           f"from {TRAFALGAR126_CARD_FINAL_COST}")
+    # phase 9, continued: the f32 trafalgar-257 solve twice (phase 4's
+    # timed solve and phase 6's counted one) gives the same CG counts and
+    # the same costs, bit for bit; ladybug's two 20-iteration solves
+    # (phase 3 and 6; K3) are reported
+    a, b = traf_log, logs["trafalgar"]
+    check(a["linear_solver_iterations"] == b["linear_solver_iterations"]
+          and a["cost"] == b["cost"],
+          f"trafalgar f32 solved twice: CG {a['linear_solver_iterations']} "
+          f"/ {b['linear_solver_iterations']}, costs {a['cost']} / "
+          f"{b['cost']}")
+    lady_same = ls["final_cost"] == logs["ladybug"]["cost"][-1]
+    print(f"[phase 9] trafalgar-257 f32 solved twice (phases 4 and 6): "
+          f"the same CG counts {a['linear_solver_iterations'][1:]} and "
+          f"bit-equal costs {a['cost']}; ladybug-49 (K3) final costs "
+          f"{ls['final_cost']!r} / {logs['ladybug']['cost'][-1]!r}: "
+          f"{'equal' if lady_same else 'different'}", flush=True)
 
     # K1/K2 timed at the largest (trafalgar-257) path's inputs, the
     # full-row K3 at ladybug's, the half K3 at trafalgar-126's, the grid
@@ -1880,6 +2366,12 @@ def main() -> int:
             r["max_abs_err_f64"] = max(
                 r["max_abs_err_f64"], st64["max_abs_err"],
                 tw4585["float64"][r["name"]]["max_abs_err"])
+    # K1 on the SC and PoBA paths of final-3068 (phases 10 and 11)
+    rows[0]["final3068_sc_poba_checked"] = {
+        k: st["outer81_fold"] for k, st in sc_checked.items()}
+    rows[0]["max_abs_err_f64"] = max(
+        rows[0]["max_abs_err_f64"],
+        sc_checked["poba_float64"]["outer81_fold"]["max_abs_err"])
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,
@@ -1910,6 +2402,17 @@ def main() -> int:
     lap("timing")
     ops = bsr_operator_rows(final_spy.system, smi)
     final_spy.system.clear()
+    # the SC and PoBA paths: the timed solves of phases 10-11 with K1's
+    # launches and device time per LM attempt from their counted solves
+    # (phase 6)
+    for p, r in sc_out.items():
+        if p in paths:  # not the f64 reruns of a counted path
+            n, ms = paths[p]
+            r["k1_launches_per_attempt"] = n["outer81_fold"] / attempts[p]
+            r["k1_device_ms_per_attempt"] = ms["outer81_fold"] / attempts[p]
+        r["card"] = smi
+    lap("sc line")
+    print(json.dumps({"sc": sc_out, "phase_walls_s": walls}))
     print(json.dumps({"bsr_operators": ops}))
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,10 @@
 """Obs-count bucketing and the stream indices of the explicit RCS.
 
 Host-side (numpy) copy of the JAX package's bucketing, trimmed to what
-the port's main path uses: `bucketize`, the PairStream / CamStream
-indices of the explicit reduced camera system, the BsrMatvec index of
+the port uses: `bucketize`, the camera CSR index of the per-camera
+gather-reduce (`CamCsr`, built on first use), the PairStream /
+CamStream indices of the explicit reduced camera system with the
+fixed-order reduction of their runs (`RunTree`), the BsrMatvec index of
 its block-sparse operator, and `scatter_landmarks`. Landmarks are
 grouped by observation count into a small set of buckets; each bucket
 is a struct-of-arrays batch with a static per-landmark obs count
@@ -34,6 +36,30 @@ class Bucket(NamedTuple):
     lm_id: np.ndarray  # [L] int32, original landmark index (-1 padded)
 
 
+class CamCsr(NamedTuple):
+    """Camera-major view of the flat obs axis (concatenation of every
+    bucket's [L*n] slots, in bucket order).
+
+    Per-camera accumulations (the reference's mutex scatters,
+    linearization_qr.hpp:406-429) become a static gather + a reduction
+    in a fixed order: each camera's observation slots are listed in
+    fixed-width "virtual rows" of `width` slots (a camera with many obs
+    gets several rows; rows are sorted by camera; padding points at the
+    dump slot = total_slots). A per-camera reduction is then
+    sum(gather(contrib)[R, width], axis=1), and the second level maps
+    each camera to its virtual rows with the same fixed-width trick (pad
+    entries point at the dump row R). No scatter-add anywhere, so the
+    sums repeat bit for bit on the card.
+
+    The JAX package's CamCsr also carries the inverse maps of its
+    camera-major solver layout (row_cam, lm2cs, cs_lm); that layout is
+    not ported, so neither are they."""
+
+    idx: np.ndarray  # [R, width] int32 flat-slot positions (pad=dump)
+    idx2: np.ndarray  # [N, vmax] int32 virtual-row ids (pad=R)
+    total_slots: int  # dump index == sum of L*n over buckets
+
+
 class BucketedProblem(NamedTuple):
     num_cameras: int
     num_landmarks: int  # real landmarks across all buckets
@@ -43,6 +69,7 @@ class BucketedProblem(NamedTuple):
     cam_q0: np.ndarray  # [N,4] f64
     cam_t0: np.ndarray
     cam_intr0: np.ndarray
+    cam_csr: "_LazyCamCsr"  # built on first access
 
 
 def _bucket_sizes_vec(counts: np.ndarray, pow2_from: int) -> np.ndarray:
@@ -155,7 +182,108 @@ def bucketize(
         cam_q0=problem.cam_q.copy(),
         cam_t0=problem.cam_t.copy(),
         cam_intr0=problem.cam_intr.copy(),
+        # lazy: only the implicit SQUARE_ROOT operator and the SC/PoBA
+        # stages read it, so the stream and BSR routes never pay its
+        # host build
+        cam_csr=_LazyCamCsr(tuple(buckets), problem.num_cameras),
     )
+
+
+class _LazyCamCsr:
+    """Build-on-first-access CamCsr (duck-typed: .idx/.idx2/.total_slots).
+    The lock keeps concurrent first accesses from building it twice."""
+
+    def __init__(self, buckets, num_cameras: int):
+        import threading
+
+        self._buckets = buckets
+        self._n = num_cameras
+        self._v: CamCsr | None = None
+        self._lock = threading.Lock()
+
+    def _get(self) -> CamCsr:
+        if self._v is None:
+            with self._lock:
+                if self._v is None:
+                    self._v = build_cam_csr(self._buckets, self._n)
+        return self._v
+
+    @property
+    def idx(self):
+        return self._get().idx
+
+    @property
+    def idx2(self):
+        return self._get().idx2
+
+    @property
+    def total_slots(self):
+        return self._get().total_slots
+
+
+def build_cam_csr(buckets, num_cameras: int, width: int = 64) -> CamCsr:
+    """Build the camera-major virtual-row index of all real obs slots
+    (camera c's slots in flat-slot order, through _csr_rows)."""
+    cam_flat = np.concatenate([b.cam_idx.reshape(-1) for b in buckets])
+    mask_flat = np.concatenate([b.mask.reshape(-1) for b in buckets])
+    total_slots = cam_flat.size
+    pos = np.nonzero(mask_flat)[0].astype(np.int64)
+    cams = cam_flat[pos].astype(np.int64)
+    order = np.argsort(cams, kind="stable")
+    idx, idx2, _ = _csr_rows(pos[order], cams[order], num_cameras, width,
+                             total_slots)
+    return CamCsr(idx=idx.astype(np.int32), idx2=idx2.astype(np.int32),
+                  total_slots=int(total_slots))
+
+
+class RunTree(NamedTuple):
+    """Fixed-order reduction of the runs of one sub-stream into their
+    targets (pairs or cameras). The stream builders pad each target's
+    sorted slots to width-aligned runs, so a target with more than W
+    slots in a sub-stream owns several ADJACENT runs, and a scatter-add
+    of all runs would add them in whatever order the card's atomics
+    take. Instead, run rows are summed pairwise in place: pass d adds
+    the run at rank r + 2^d of its target into the one at rank r, for
+    every r divisible by 2^(d+1) -- within a pass every destination is
+    distinct and no destination is a source -- until each target's
+    first run (its head) holds the target's sum, which one add with
+    distinct targets puts into the output. The same tree on every run,
+    so the same bits.
+
+    passes is empty when no target has a second run; the caller then
+    adds the run rows straight into their targets (pad runs, which
+    target the dump row, may collide there: it is dropped)."""
+
+    passes: Tuple[Tuple[np.ndarray, np.ndarray], ...]  # (dst, src) runs
+    head: np.ndarray  # [U] run ids of the heads (real targets only)
+
+
+def build_run_tree(target: np.ndarray, dump: int) -> RunTree:
+    """RunTree of one sub-stream's run targets ([R], runs of one target
+    adjacent, pad runs = dump). Only targets with several runs enter the
+    passes, so the host work follows those runs, not R."""
+    t = np.asarray(target, np.int64)
+    R = t.size
+    starts = np.flatnonzero(np.concatenate([[True], t[1:] != t[:-1]])) \
+        if R else np.zeros(0, np.int64)
+    counts = np.diff(np.append(starts, R))
+    real = t[starts] != dump
+    head = starts[real]
+    multi = real & (counts > 1)
+    ms, mc = starts[multi], counts[multi]
+    passes = []
+    step = 1
+    while mc.size and int(mc.max()) > step:
+        sel = mc > step
+        s_, c_ = ms[sel], mc[sel]
+        # ranks r = 2 k step with r + step < count, per segment
+        n = (c_ - step + 2 * step - 1) // (2 * step)
+        k = np.arange(int(n.sum()), dtype=np.int64) - np.repeat(
+            np.cumsum(n) - n, n)
+        dst = np.repeat(s_, n) + 2 * step * k
+        passes.append((dst, dst + step))
+        step *= 2
+    return RunTree(passes=tuple(passes), head=head)
 
 
 def _pad_runs(code_sorted, width, *cols):
@@ -316,6 +444,8 @@ class PairStream(NamedTuple):
     wj_idx: Tuple[np.ndarray, ...]  # [S, R, W] side 2
     run_pair: Tuple[np.ndarray, ...]  # per stack [S, R] int32 pair id
     #   of each run (pad = P)
+    run_tree: Tuple[Tuple[RunTree, ...], ...]  # per stack, per
+    #   sub-stream: the fixed-order reduction of its runs (port only)
     up_idx: np.ndarray  # [G*G] int32 dense block (r,c) -> pair id of
     #   (r,c) if r <= c else P; empty if not dense
     lo_idx: np.ndarray  # [G*G] int32 -> pair id of (c,r) if c <= r
@@ -379,6 +509,7 @@ def build_pair_stream(buckets, num_cameras: int, width: int = 16,
     wi_stacks = []
     wj_stacks = []
     rp_stacks = []
+    rt_stacks = []
     for bi, b in enumerate(buckets):
         L, n = b.cam_idx.shape
         if L == 0 or n < 2:
@@ -456,6 +587,8 @@ def build_pair_stream(buckets, num_cameras: int, width: int = 16,
             wi_st[s, :r] = wi_runs[s]
             wj_st[s, :r] = wj_runs[s]
             rp_st[s, :r] = rp_runs[s]
+        rt_stacks.append(tuple(build_run_tree(rp_st[s], P)
+                               for s in range(S)))
         stream_bucket.append(bi)
         rows_sub_list.append(rows_sub)
         widths_list.append(bw)
@@ -479,7 +612,7 @@ def build_pair_stream(buckets, num_cameras: int, width: int = 16,
         stream_bucket=tuple(stream_bucket),
         rows_sub=tuple(rows_sub_list),
         wi_idx=tuple(wi_stacks), wj_idx=tuple(wj_stacks),
-        run_pair=tuple(rp_stacks),
+        run_pair=tuple(rp_stacks), run_tree=tuple(rt_stacks),
         up_idx=up_idx.astype(np.int32), lo_idx=lo_idx.astype(np.int32))
 
 
@@ -496,6 +629,8 @@ class CamStream(NamedTuple):
     w_idx: Tuple[np.ndarray, ...]  # per stack [S, R, W] int32 local
     #   slot ids (pad = rows_sub*n)
     run_cam: Tuple[np.ndarray, ...]  # per stack [S, R] int32 (pad = N)
+    run_tree: Tuple[Tuple[RunTree, ...], ...]  # per stack, per
+    #   sub-stream (see PairStream.run_tree)
 
 
 def build_cam_stream(buckets, num_cameras: int, width: int = 16,
@@ -505,6 +640,7 @@ def build_cam_stream(buckets, num_cameras: int, width: int = 16,
     rows_sub_list = []
     w_stacks = []
     rc_stacks = []
+    rt_stacks = []
     for bi, b in enumerate(buckets):
         L, n = b.cam_idx.shape
         if L == 0:
@@ -533,6 +669,8 @@ def build_cam_stream(buckets, num_cameras: int, width: int = 16,
             r = w_runs[s].shape[0]
             w_st[s, :r] = w_runs[s]
             rc_st[s, :r] = rc_runs[s]
+        rt_stacks.append(tuple(build_run_tree(rc_st[s], N)
+                               for s in range(S)))
         stream_bucket.append(bi)
         rows_sub_list.append(rows_sub)
         w_stacks.append(w_st)
@@ -542,4 +680,5 @@ def build_cam_stream(buckets, num_cameras: int, width: int = 16,
         num_cameras=N,
         stream_bucket=tuple(stream_bucket),
         rows_sub=tuple(rows_sub_list),
-        w_idx=tuple(w_stacks), run_cam=tuple(rc_stacks))
+        w_idx=tuple(w_stacks), run_cam=tuple(rc_stacks),
+        run_tree=tuple(rt_stacks))

@@ -140,16 +140,20 @@ class SolverOptions:
     """Reference: src/rootba/bal/solver_options.hpp:46-283, trimmed to the
     options the port reads. The JAX package's knobs of paths the port
     does not have yet (the multi-device mesh, checkpoints, strip
-    gathers, PoBA, the CERES baselines and the host driver's
-    calibration timing) are left out, so setting one is an unknown-key
-    or unknown-flag error."""
+    gathers, the CERES baselines and the host driver's calibration
+    timing) are left out, so setting one is an unknown-key or
+    unknown-flag error."""
 
     solver_type: SolverType = opt(
         SolverType.SQUARE_ROOT,
-        help="SquareRoot (the only solver ported so far; the others "
-             "raise)")
+        help="SquareRoot | SchurComplement | PowerSchurComplement "
+             "(CERES raises: not ported)")
     verbosity_level: int = opt(2, help="0 silent, 1 brief, 2 full",
                                range=(0, 2))
+    debug: bool = opt(False, help="print extra debug info")
+    num_threads: int = opt(
+        0, help="host thread hint (0 = auto), copied into ba_log.json's "
+                "num_threads_given; torch manages device parallelism")
 
     residual: BalResidualOptions = suboptions(BalResidualOptions)
     log: BaLogOptions = suboptions(BaLogOptions)
@@ -173,10 +177,26 @@ class SolverOptions:
         0.0, help="0 means sqrt(machine eps) for the active dtype")
     preconditioner_type: PreconditionerType = opt(
         PreconditionerType.SCHUR_JACOBI,
-        help="SchurJacobi | Jacobi | Diagonal")
+        help="SchurJacobi | Jacobi | Diagonal | PowerSchurComplement "
+             "(the last for the SCHUR_COMPLEMENT solver only)")
     function_tolerance: float = opt(1e-6)
 
     use_double: bool = opt(True, help="float64 instead of float32")
+    use_householder_marginalization: bool = opt(
+        True, help="accepted but inert: the sqrt solver always uses "
+                   "batched Householder-QR projection")
+    staged_execution: bool = opt(
+        True, help="accepted but inert: the stages always run in one "
+                   "attempt body")
+    reduction_alg: int = opt(
+        1, help="per-camera sums of the implicit SQUARE_ROOT operator "
+                "and of the SC/PoBA stages (jacobi scaling, right-hand "
+                "side, PoBA's implicit E0 sweep): 0 scatter-adds "
+                "(index_add_); any other value gathers each camera's "
+                "slots through the camera CSR index and sums them in a "
+                "fixed order")
+    power_order: int = opt(
+        10, help="max inner iterations of Power SC preconditioner/solver")
     initial_vee: float = opt(2.0)
     vee_factor: float = opt(2.0)
 

@@ -60,9 +60,15 @@ def _df_reduce(hi, lo):
     return hi[0], lo[0]
 
 
+def comp_sum2(x):
+    """Compensated sum as the double-float pair (hi, lo) with
+    x.sum() = hi + lo to ~2^-48 relative accuracy."""
+    return _df_reduce(x, torch.zeros_like(x))
+
+
 def comp_sum(x):
     """Compensated sum collapsed back to the input dtype."""
-    hi, lo = _df_reduce(x, torch.zeros_like(x))
+    hi, lo = comp_sum2(x)
     return hi + lo
 
 

@@ -252,7 +252,7 @@ def optimize_lm_fused(bp, options: SolverOptions,
         s = spans[i]
         its.stage1_time_in_seconds = s.get("stage1", 0.0)
         its.jacobian_evaluation_time_in_seconds = s.get("stage1", 0.0)
-        its.stage2_time_in_seconds = s.get("stage2", 0.0)
+        setattr(its, linearizer.prepare_field, s.get("stage2", 0.0))
         its.solve_reduced_system_time_in_seconds = s.get("lsolve", 0.0)
         its.back_substitution_time_in_seconds = s.get("bsub", 0.0)
         its.residual_evaluation_time_in_seconds = s.get("err", 0.0)
@@ -275,6 +275,7 @@ def optimize_lm_fused(bp, options: SolverOptions,
                            f"of {max_it} iterations")
     summary.minimizer_time_in_seconds = minimizer_time
     summary.total_time_in_seconds = time.monotonic() - t_total
+    summary.num_threads_given = options.num_threads
     summary.num_threads_used = 1
     finish_solve(summary, linearizer.linear_solver_type)
     if verbose:

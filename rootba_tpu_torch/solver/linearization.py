@@ -1,14 +1,28 @@
-"""Device-side structures and reducers of the flat SQUARE_ROOT path.
+"""Device-side structures and reducers of the flat SQUARE_ROOT path and
+of the SC/PoBA solvers.
 
 Port of the parts of the JAX package's `solver/linearization.py` that
-its main path runs: the camera state and bucket index, row chunking,
-the packed camera table, the cost evaluation, the stream indices with
-their reducers (pair products, per-camera grams and sums) feeding the
-dense reduced camera system (`assemble_rcs_dense`), the fused-W
+the ported paths run: the camera state and bucket index, row chunking,
+the packed camera table, the cost evaluation, the camera-CSR
+gather-reduce (`CamCsrIndex`, `csr_cam_reduce`), the stream indices
+with their reducers (pair products, per-camera grams and sums) feeding
+the dense reduced camera system (`assemble_rcs_dense`), the fused-W
 factors those reducers take above the W-table budget (`StreamFactors`),
-and the block-sparse form of that system with its CG operators
+the block-sparse form of that system with its CG operators
 (`BsrMatvecIndex`, `assemble_rcs_bsr`, `bsr_build_table`,
-`bsr_table_matvec`).
+`bsr_table_matvec`), and the bucket-layout linearization of the SC/PoBA
+solvers (`LinBucket`, `linearize_bucket`, `scale_jl_cols`, `jp_diag2`,
+`jp_t_jp_blockdiag`, `scale_jp_cols`).
+
+Every per-camera and per-pair sum on the explicit and CSR routes adds
+in a fixed order, so it repeats bit for bit on the card: the CSR reduce
+and the BSR operator gather and sum; the stream reducers reduce each
+sub-stream's runs of one target through a fixed tree (`RunTreeIndex`,
+bal.bucketing.RunTree) before their one scatter-add with distinct
+targets. `segment_sum` (index_add_ with repeated targets) remains where
+the JAX package keeps its segment sum: the preconditioner blocks of the
+implicit SQUARE_ROOT mode, reduction_alg=0, SC's scatter assembly and
+the Jp gram of the power-series paths.
 
 Index tensors are uploaded once as int64. The stream indices address
 slot rows of a bucket's landmark tables; their fill sentinel (the
@@ -29,7 +43,7 @@ directly; `_outer81_fold` / `_outer81_fold_chunked` are
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,9 +98,52 @@ def _map_rows(f: Callable, tables: Sequence[torch.Tensor], L: int, n: int):
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """out[s] = sum of data rows whose seg id is s."""
+    """out[s] = sum of data rows whose seg id is s (index_add_: on the
+    card, repeated ids add in a varying order)."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, seg, data)
+
+
+@dataclass(frozen=True)
+class CamCsrIndex:
+    """Device copy of bucketing.CamCsr (see its docstring): idx
+    [R, width] flat-slot positions (pad = total_slots), idx2 [N, vmax]
+    virtual-row ids (pad = R)."""
+
+    idx: torch.Tensor
+    idx2: torch.Tensor
+
+    @staticmethod
+    def from_host(csr, device) -> "CamCsrIndex":
+        def up(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+        return CamCsrIndex(idx=up(csr.idx), idx2=up(csr.idx2))
+
+
+# virtual rows per chunk of csr_cam_reduce's first level: one chunk's
+# [chunk, width, F] gather lives at a time (the JAX package's budget)
+_CSR_CHUNK_SLOTS = 512 << 10
+
+
+def csr_cam_reduce(contribs, csr: CamCsrIndex,
+                   num_cameras: int) -> torch.Tensor:
+    """Per-camera sum of per-obs-slot contribution rows without a
+    scatter: contribs is the per-bucket list of flat [L*n, F] rows (in
+    bucket order, matching the CamCsr slot numbering); returns [N, F].
+    Each virtual row's slots are gathered and summed, then each
+    camera's virtual rows (_level2_reduce): a fixed order."""
+    flat = torch.cat(list(contribs) + [contribs[0].new_zeros(
+        (1, contribs[0].shape[1]))], dim=0)  # + the dump slot's zero row
+    F = flat.shape[1]
+    R, W = csr.idx.shape
+    chunk = max(1, min(R, _CSR_CHUNK_SLOTS // max(W, 1)))
+    rsum = flat.new_zeros((R + 1, F))  # + the dump row of idx2
+    for a in range(0, R, chunk):
+        ic = csr.idx[a:a + chunk]
+        rsum[a:a + ic.shape[0]] = flat.index_select(
+            0, ic.reshape(-1)).reshape(-1, W, F).sum(dim=1)
+    return _level2_reduce(rsum, csr.idx2)
 
 
 def packed_cam_table(cams: CamState) -> torch.Tensor:
@@ -159,16 +216,62 @@ def _global_slots(local: np.ndarray, rows_sub: int, n: int,
 
 
 @dataclass(frozen=True)
+class RunTreeIndex:
+    """Device copy of bucketing.RunTree: the (dst, src) run ids of each
+    pass and the head runs with their targets, int32 views of one
+    uploaded index tensor (a sub-stream with a tree needs no [R] run
+    targets on the card: its scatter adds the heads only)."""
+
+    passes: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    head: torch.Tensor
+    head_target: torch.Tensor
+
+    @staticmethod
+    def from_host(tree, target, device):
+        """The tree of one sub-stream whose [R] run targets are `target`,
+        or None when no target has a second run (a plain scatter-add is
+        then in a fixed order already)."""
+        if not tree.passes:
+            return None
+        parts = [tree.head, np.asarray(target, np.int64)[tree.head]]
+        for d, s in tree.passes:
+            parts += [d, s]
+        flat = torch.as_tensor(np.concatenate(parts).astype(np.int32),
+                               device=device)
+        views = torch.split(flat, [len(x) for x in parts])
+        return RunTreeIndex(
+            passes=tuple(zip(views[2::2], views[3::2])), head=views[0],
+            head_target=views[1])
+
+
+def _scatter_runs(out: torch.Tensor, rows: torch.Tensor,
+                  target: Optional[torch.Tensor], tree) -> None:
+    """out[target[r]] += rows[r] for one sub-stream's run rows, in a
+    fixed order: through the run tree when a target has several runs
+    (rows is reduced in place; target is None then), else one
+    scatter-add with distinct targets (pads hit the dump row, which is
+    dropped)."""
+    if tree is None:
+        out.index_add_(0, target, rows)
+        return
+    for dst, src in tree.passes:
+        rows.index_add_(0, dst, rows.index_select(0, src))
+    out.index_add_(0, tree.head_target, rows.index_select(0, tree.head))
+
+
+@dataclass(frozen=True)
 class PairStreamIndex:
     """Device copy of bucketing.PairStream. Per stack t: the bucket id,
     run width and, per sub-stream, the [R*W] slot ids of both pair
-    sides and the [R] pair id of each run (pad = P)."""
+    sides, and either the [R] pair id of each run (pad = P) or, where a
+    pair has several runs, the run tree."""
 
     widths: Tuple[int, ...]
     stream_bucket: Tuple[int, ...]
     wi_idx: Tuple[Tuple[torch.Tensor, ...], ...]
     wj_idx: Tuple[Tuple[torch.Tensor, ...], ...]
-    run_pair: Tuple[Tuple[torch.Tensor, ...], ...]
+    run_pair: Tuple[Tuple[Optional[torch.Tensor], ...], ...]
+    run_tree: Tuple[Tuple[Optional[RunTreeIndex], ...], ...]
     pair_row: torch.Tensor  # [P]
     pair_col: torch.Tensor  # [P]
     up_idx: torch.Tensor  # [G*G]
@@ -185,7 +288,7 @@ class PairStreamIndex:
         def up(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-        wi, wj, rp = [], [], []
+        wi, wj, rp, rt = [], [], [], []
         for t, bi in enumerate(ps.stream_bucket):
             L, n = buckets[bi].cam_idx.shape
             rs = ps.rows_sub[t]
@@ -193,10 +296,15 @@ class PairStreamIndex:
             gj = _global_slots(ps.wj_idx[t], rs, n, L)
             wi.append(tuple(up(g.reshape(-1)) for g in gi))
             wj.append(tuple(up(g.reshape(-1)) for g in gj))
-            rp.append(tuple(up(r) for r in ps.run_pair[t]))
+            trees = tuple(RunTreeIndex.from_host(tr, r, device)
+                          for tr, r in zip(ps.run_tree[t], ps.run_pair[t]))
+            rp.append(tuple(up(r) if tr is None else None
+                            for tr, r in zip(trees, ps.run_pair[t])))
+            rt.append(trees)
         return PairStreamIndex(
             widths=tuple(ps.widths), stream_bucket=tuple(ps.stream_bucket),
             wi_idx=tuple(wi), wj_idx=tuple(wj), run_pair=tuple(rp),
+            run_tree=tuple(rt),
             pair_row=up(ps.pair_row), pair_col=up(ps.pair_col),
             up_idx=up(ps.up_idx), lo_idx=up(ps.lo_idx))
 
@@ -204,30 +312,36 @@ class PairStreamIndex:
 @dataclass(frozen=True)
 class CamStreamIndex:
     """Device copy of bucketing.CamStream: per stack, per sub-stream the
-    [R*W] slot ids of each camera run and the [R] camera of each run
-    (pad = N)."""
+    [R*W] slot ids of each camera run, and either the [R] camera of
+    each run (pad = N) or, where a camera has several runs, the run
+    tree."""
 
     width: int
     num_cameras: int
     stream_bucket: Tuple[int, ...]
     w_idx: Tuple[Tuple[torch.Tensor, ...], ...]
-    run_cam: Tuple[Tuple[torch.Tensor, ...], ...]
+    run_cam: Tuple[Tuple[Optional[torch.Tensor], ...], ...]
+    run_tree: Tuple[Tuple[Optional[RunTreeIndex], ...], ...]
 
     @staticmethod
     def from_host(cs, buckets, device) -> "CamStreamIndex":
         def up(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-        w, rc = [], []
+        w, rc, rt = [], [], []
         for t, bi in enumerate(cs.stream_bucket):
             L, n = buckets[bi].cam_idx.shape
             g = _global_slots(cs.w_idx[t], cs.rows_sub[t], n, L)
             w.append(tuple(up(x.reshape(-1)) for x in g))
-            rc.append(tuple(up(r) for r in cs.run_cam[t]))
+            trees = tuple(RunTreeIndex.from_host(tr, r, device)
+                          for tr, r in zip(cs.run_tree[t], cs.run_cam[t]))
+            rc.append(tuple(up(r) if tr is None else None
+                            for tr, r in zip(trees, cs.run_cam[t])))
+            rt.append(trees)
         return CamStreamIndex(
             width=cs.width, num_cameras=cs.num_cameras,
             stream_bucket=tuple(cs.stream_bucket), w_idx=tuple(w),
-            run_cam=tuple(rc))
+            run_cam=tuple(rc), run_tree=tuple(rt))
 
 
 class StreamFactors(NamedTuple):
@@ -284,7 +398,8 @@ def pair_outer_stream(strip_a, strip_b, buckets: Sequence[BucketIndex],
 
     strip_a/strip_b are per-bucket tuples of [L_b, n_b*K*9] tables or
     StreamFactors. Each sub-stream's gathered slot rows go through K1
-    (ops.fold) and its run rows are added into the [P+1, 81] table."""
+    (ops.fold) and its run rows are added into the [P+1, 81] table in a
+    fixed order (_scatter_runs)."""
     same = strip_a is strip_b
     P = ps.num_pairs
     out = _first_table(strip_a).new_zeros((P + 1, 81))
@@ -293,12 +408,12 @@ def pair_outer_stream(strip_a, strip_b, buckets: Sequence[BucketIndex],
         n = buckets[bi].cam_idx.shape[1]
         fa = _slot_table(strip_a[bi], n)
         fb = fa if same else _slot_table(strip_b[bi], n)
-        for wi, wj, rp in zip(ps.wi_idx[t], ps.wj_idx[t],
-                              ps.run_pair[t]):
+        for wi, wj, rp, tree in zip(ps.wi_idx[t], ps.wj_idx[t],
+                                    ps.run_pair[t], ps.run_tree[t]):
             rows = fold.outer81_fold(_gather_slot_rows(fa, wi),
                                      _gather_slot_rows(fb, wj),
                                      ps.widths[t])
-            out.index_add_(0, rp, rows)
+            _scatter_runs(out, rows, rp, tree)
     return out[:P]
 
 
@@ -320,14 +435,15 @@ def cam_gram_stream(terms, buckets: Sequence[BucketIndex],
             fa = _slot_table(A[bi], n)
             tabs.append((fa, fa if same_t else _slot_table(B[bi], n),
                          sign, same_t))
-        for w, rc in zip(cs.w_idx[t], cs.run_cam[t]):
+        for w, rc, tree in zip(cs.w_idx[t], cs.run_cam[t],
+                               cs.run_tree[t]):
             acc = None
             for fa, fb, sign, same_t in tabs:
                 si = _gather_slot_rows(fa, w)
                 sj = si if same_t else _gather_slot_rows(fb, w)
                 g = fold.outer81_fold(si, sj, cs.width) * sign
                 acc = g if acc is None else acc + g
-            out.index_add_(0, rc, acc)
+            _scatter_runs(out, acc, rc, tree)
     return out[:N]
 
 
@@ -342,8 +458,10 @@ def cam_reduce_stream(tables, buckets: Sequence[BucketIndex],
     out = tables[0].new_zeros((N + 1, F))
     for t, bi in enumerate(cs.stream_bucket):
         fa = _slot_table(tables[bi], buckets[bi].cam_idx.shape[1])
-        for w, rc in zip(cs.w_idx[t], cs.run_cam[t]):
-            out.index_add_(0, rc, fa[w].reshape(-1, W, F).sum(dim=1))
+        for w, rc, tree in zip(cs.w_idx[t], cs.run_cam[t],
+                               cs.run_tree[t]):
+            _scatter_runs(out, fa[w].reshape(-1, W, F).sum(dim=1), rc,
+                          tree)
     return out[:N]
 
 
@@ -356,18 +474,21 @@ def assemble_rcs_dense(strip_a, strip_b, pairs: PairStreamIndex, lam,
             - strip_a_i' strip_b_j at off-diagonal camera pairs + lam I
 
     with the deferred jacobi pose scale applied at the [P, 81] / [N, 81]
-    level. Returns (Hz, diag): Hz the feature-major ("z-space") dense
-    matrix Hz[a*G+i, b*G+j] = block(i,j)[a,b] on the (possibly padded)
-    [G, G] camera grid of the pair index, diag the [N,9,9] diagonal
-    blocks (the SCHUR_JACOBI preconditioner, free)."""
+    level (pose_scale None: factors already scaled, the SC solvers').
+    diag81 is the [N, 81] diagonal-block table, reduced by the caller
+    (the JAX package's diag_terms: SQUARE_ROOT passes the cached Jp gram
+    less W'W, SC its signed terms through cam_gram_stream). Returns
+    (Hz, diag): Hz the feature-major ("z-space") dense matrix
+    Hz[a*G+i, b*G+j] = block(i,j)[a,b] on the (possibly padded) [G, G]
+    camera grid of the pair index, diag the [N,9,9] diagonal blocks (the
+    SCHUR_JACOBI preconditioner, free)."""
     P9 = POSE_SIZE
     N = num_cameras
     Hup = pair_outer_stream(strip_a, strip_b, buckets, pairs)
-    Sp = pose_scale[pairs.pair_row]
-    Sc = pose_scale[pairs.pair_col]
-    Hup = Hup * (Sp.repeat_interleave(P9, dim=1) * Sc.repeat(1, P9))
-    diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
-                       * pose_scale.repeat(1, P9))
+    if pose_scale is not None:
+        Hup = Hup * _pair_scale(pose_scale, pairs.pair_row, pairs.pair_col)
+        diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
+                           * pose_scale.repeat(1, P9))
 
     zero = Hup.new_zeros((1, P9 * P9))
     up = torch.cat([-Hup, zero], dim=0)
@@ -474,7 +595,10 @@ def _pair_scale(pose_scale, pair_row, pair_col):
 
 def _scale_neg_chunked(Hup, pose_scale, pair_row, pair_col):
     """-S_i Hup S_j IN PLACE over the [P, 81] pair table, chunk by chunk:
-    a whole-table scale tensor would double the table's footprint."""
+    a whole-table scale tensor would double the table's footprint
+    (pose_scale None: -Hup)."""
+    if pose_scale is None:
+        return Hup.neg_()
     P = Hup.shape[0]
     for a in range(0, P, _FILL_CHUNK_ROWS):
         b = min(P, a + _FILL_CHUNK_ROWS)
@@ -496,12 +620,14 @@ def assemble_rcs_bsr(strip_a, strip_b, pairs: PairStreamIndex, lam,
       diag [N, 9, 9] = per-camera diagonal blocks + lam I (also the
         SCHUR_JACOBI preconditioner).
 
-    The deferred jacobi pose scale is applied at the [P, 81] level."""
+    The deferred jacobi pose scale is applied at the [P, 81] level
+    (None: unit, the SC solvers'); diag81 as in assemble_rcs_dense."""
     P9 = POSE_SIZE
     N = num_cameras
     Hup = pair_outer_stream(strip_a, strip_b, buckets, pairs)
-    diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
-                       * pose_scale.repeat(1, P9))
+    if pose_scale is not None:
+        diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
+                           * pose_scale.repeat(1, P9))
     eye = torch.eye(P9, dtype=diag81.dtype, device=diag81.device)
     diag = diag81.reshape(N, P9, P9) + lam * eye
     if symmetric:
@@ -512,7 +638,9 @@ def assemble_rcs_bsr(strip_a, strip_b, pairs: PairStreamIndex, lam,
     blocks2 = Hup.new_empty((2 * P, P9 * P9))
     for a in range(0, P, _FILL_CHUNK_ROWS):
         b = min(P, a + _FILL_CHUNK_ROWS)
-        rows = Hup[a:b] * _pair_scale(pose_scale, pairs.pair_row[a:b],
+        rows = Hup[a:b]
+        if pose_scale is not None:
+            rows = rows * _pair_scale(pose_scale, pairs.pair_row[a:b],
                                       pairs.pair_col[a:b])
         blocks2[a:b] = -rows
         blocks2[P + a:P + b] = -rows[:, perm_t]
@@ -617,3 +745,84 @@ def bsr_table_matvec(table: torch.Tensor, diag: torch.Tensor,
     if symmetric:
         return lambda x: bsr_matvec_sym(table, diag, bsr, x)
     return lambda x: bsr_matvec_packed(table, diag, bsr, x)
+
+
+# ---------------------------------------------------------------------------
+# The bucket layout of the SC/PoBA solvers: per bucket, Jp [L, n, 2, 9],
+# Jl [L, n, 2, 3] and r [L, n, 2] (the flat SQUARE_ROOT path keeps its
+# own 2-D tables, sqrt_flat.FlatLin).
+
+
+class LinBucket(NamedTuple):
+    """Linearized (stage-1) data of one bucket."""
+
+    Jp: torch.Tensor  # [L,n,2,9] sqrt-weighted, masked, maybe pose-scaled
+    Jl: torch.Tensor  # [L,n,2,3] sqrt-weighted, masked, Jl-col-scaled
+    r: torch.Tensor  # [L,n,2]
+    Jl_scale: torch.Tensor  # [L,3] (1/(eps+||col||))
+
+
+def linearize_bucket(cams: CamState, lm_p: torch.Tensor, bucket: BucketIndex,
+                     robust_norm: int, huber_parameter: float,
+                     use_valid_projections_only: bool):
+    """Linearize one bucket over flat [O = L*n] component planes (the
+    flat path's ops.planar.snavely_planes). Returns (LinBucket without
+    the Jl scaling yet, number of numerical failures)."""
+    from rootba_tpu_torch.ops.planar import robust_sqrt_weight, snavely_planes
+
+    L, n = bucket.cam_idx.shape
+    cam_planes = gather_cam_planes(packed_cam_table(cams),
+                                   bucket.cam_idx.reshape(-1))
+    X, Y, Z = _broadcast_lm(lm_p, n)
+    res_u, res_v, valid, Jp_planes, Jl_planes = snavely_planes(
+        *cam_planes, X, Y, Z, bucket.obs_uv[..., 0].reshape(-1),
+        bucket.obs_uv[..., 1].reshape(-1))
+    sw, use_mask = robust_sqrt_weight(
+        res_u, res_v, valid, bucket.mask.reshape(-1), robust_norm,
+        huber_parameter, use_valid_projections_only)
+    # numerical validity over used slots (reference
+    # landmark_block_base.ipp:120-125): any non-finite J/res is failure
+    finite = torch.isfinite(res_u) & torch.isfinite(res_v)
+    for v in Jp_planes + Jl_planes:
+        finite = finite & torch.isfinite(v)
+    num_failures = (use_mask & ~finite).sum()
+    Jp = torch.stack([sw * v for v in Jp_planes],
+                     dim=-1).reshape(L, n, 2, POSE_SIZE)
+    Jl = torch.stack([sw * v for v in Jl_planes], dim=-1).reshape(L, n, 2, 3)
+    r = torch.stack([sw * res_u, sw * res_v], dim=-1).reshape(L, n, 2)
+    return LinBucket(Jp=Jp, Jl=Jl, r=r, Jl_scale=Jp.new_zeros(())), \
+        num_failures
+
+
+def scale_jl_cols(lin: LinBucket, jacobi_scaling_eps: float) -> LinBucket:
+    """Landmark-Jacobian column scaling 1/(eps + ||col||) (reference
+    landmark_block_base.ipp:572-587), per landmark over its 2n rows."""
+    L, n = lin.Jl.shape[0], lin.Jl.shape[1]
+    cols = lin.Jl.reshape(L, 2 * n, 3)
+    scale = 1.0 / (jacobi_scaling_eps + torch.linalg.vector_norm(cols, dim=1))
+    Jl = (cols * scale[:, None, :]).reshape(lin.Jl.shape)
+    return lin._replace(Jl=Jl, Jl_scale=scale)
+
+
+def jp_diag2(lin: LinBucket, cam_idx: torch.Tensor, num_cameras: int):
+    """Per-camera column squared norms of Jp (add_Jp_diag2), as a
+    segment sum."""
+    contrib = torch.sum(lin.Jp * lin.Jp, dim=-2)  # [L,n,9]
+    return segment_sum(contrib.reshape(-1, POSE_SIZE), cam_idx.reshape(-1),
+                       num_cameras)
+
+
+def jp_t_jp_blockdiag(lin: LinBucket, cam_idx: torch.Tensor,
+                      num_cameras: int):
+    """Per-camera 9x9 Gram blocks of Jp (add_Jp_T_Jp_blockdiag)."""
+    blocks = torch.einsum("lnri,lnrj->lnij", lin.Jp, lin.Jp)
+    return segment_sum(blocks.reshape(-1, POSE_SIZE, POSE_SIZE),
+                       cam_idx.reshape(-1), num_cameras)
+
+
+def scale_jp_cols(lin: LinBucket, cam_idx: torch.Tensor,
+                  pose_scale: torch.Tensor) -> LinBucket:
+    """Apply the per-camera jacobi scaling to the Jp columns
+    (scale_Jp_cols, landmark_block_base.ipp:589-614)."""
+    s = pose_scale[cam_idx]  # [L,n,9]
+    return lin._replace(Jp=lin.Jp * s[..., None, :])

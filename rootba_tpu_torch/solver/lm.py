@@ -3,8 +3,10 @@
 
 Port of the JAX package's `solver/lm.py` for the main path: the state
 (cameras + per-bucket landmark positions), the bucket index upload,
-the linearizer base with the host driver's stage calls,
-`create_linearizer` (SQUARE_ROOT on the flat layout), the host LM loop
+the linearizer base with the host driver's stage calls, the lazy
+camera-CSR index and the SC/PoBA stage1 (`_stage1_common`),
+`create_linearizer` (SQUARE_ROOT on the flat layout, SCHUR_COMPLEMENT
+and POWER_SCHUR_COMPLEMENT in solver/explicit_sc.py), the host LM loop
 `optimize_lm` and `bundle_adjust`, which routes a problem to it or to
 the attempt-loop driver (solver/fused_lm.py). `state_from_numpy` /
 `state_to_numpy` carry a state across the two packages as numpy arrays.
@@ -161,6 +163,10 @@ class LinearizerBase:
     evaluations and time the iteration's stage fields."""
 
     linear_solver_type = "?"
+    # the iteration field that the stage2 span is logged into: the QR
+    # solver logs it as stage2_time (linearizor_qr.cpp), the SC/PoBA
+    # solvers as prepare_time (linearizor_sc.cpp)
+    prepare_field = "stage2_time_in_seconds"
 
     def __init__(self, bp: BucketedProblem, options: SolverOptions,
                  dtype: torch.dtype, device: torch.device):
@@ -170,6 +176,12 @@ class LinearizerBase:
         self.num_cameras = bp.num_cameras
         self.bp = bp  # host-side structure (index builders read it)
         self.buckets = make_bucket_indices(bp, dtype, device)
+        # camera-CSR gather-reduce index (replaces segment_sum scatters
+        # with a fixed-order sum; see bucketing.CamCsr), uploaded on
+        # first access: only the paths that reduce through it pay its
+        # host build
+        self._cam_csr_cache = None
+        self._cam_csr_enabled = options.reduction_alg != 0
         self.robust_norm = (1 if options.residual.robust_norm
                             == RobustNorm.HUBER else 0)
         self.huber = float(options.residual.huber_parameter)
@@ -186,6 +198,67 @@ class LinearizerBase:
 
     def _build(self):
         raise NotImplementedError
+
+    @property
+    def cam_csr(self):
+        """The CamCsrIndex of the problem, or None under
+        reduction_alg=0 (or once set to None)."""
+        if not self._cam_csr_enabled:
+            return None
+        if self._cam_csr_cache is None:
+            from rootba_tpu_torch.solver.linearization import CamCsrIndex
+
+            self._cam_csr_cache = CamCsrIndex.from_host(self.bp.cam_csr,
+                                                        self.device)
+        return self._cam_csr_cache
+
+    @cam_csr.setter
+    def cam_csr(self, v):
+        if v is None:
+            self._cam_csr_enabled = False
+        else:
+            self._cam_csr_cache = v
+            self._cam_csr_enabled = True
+
+    def _stage1_common(self, buckets, cams, lm_ps, csr=None):
+        """Linearize all buckets in the bucket layout, Jl column
+        scaling, pose jacobi scaling (the SC/PoBA solvers' stage1)."""
+        from rootba_tpu_torch.solver.linearization import (
+            POSE_SIZE,
+            csr_cam_reduce,
+            jp_diag2,
+            linearize_bucket,
+            scale_jl_cols,
+            scale_jp_cols,
+        )
+
+        lins = []
+        diag2 = torch.zeros((self.num_cameras, POSE_SIZE), dtype=self.dtype,
+                            device=self.device)
+        diag2_rows = []
+        failures = torch.zeros((), dtype=torch.int64, device=self.device)
+        for lm_p, bucket in zip(lm_ps, buckets):
+            lin, nfail = linearize_bucket(
+                cams, lm_p, bucket, self.robust_norm, self.huber,
+                self.options.use_projection_validity_check())
+            lin = scale_jl_cols(lin, self.jacobi_eps)
+            if csr is not None:
+                diag2_rows.append(torch.sum(lin.Jp * lin.Jp, dim=-2)
+                                  .reshape(-1, POSE_SIZE))
+            else:
+                diag2 = diag2 + jp_diag2(lin, bucket.cam_idx,
+                                         self.num_cameras)
+            failures = failures + nfail
+            lins.append(lin)
+        if csr is not None:
+            diag2 = csr_cam_reduce(diag2_rows, csr, self.num_cameras)
+        if self.options.jacobi_scaling:
+            pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(diag2))
+        else:
+            pose_scale = torch.ones_like(diag2)
+        lins = tuple(scale_jp_cols(lin, bucket.cam_idx, pose_scale)
+                     for lin, bucket in zip(lins, buckets))
+        return lins, pose_scale, failures
 
     def attempt_at(self, cams: CamState, lm_ps, lins, pose_scale,
                    lam: float, clock: _StageClock) -> Attempt:
@@ -273,7 +346,7 @@ class LinearizerBase:
         spans = clock.spans()
         its = self.it_summary
         if its is not None:
-            its.stage2_time_in_seconds = spans["stage2"]
+            setattr(its, self.prepare_field, spans["stage2"])
             its.solve_reduced_system_time_in_seconds = spans["lsolve"]
             its.back_substitution_time_in_seconds = spans["bsub"]
             its.residual_evaluation_time_in_seconds += spans["err"]
@@ -289,10 +362,18 @@ class LinearizerBase:
 
 def create_linearizer(bp: BucketedProblem, options: SolverOptions,
                       dtype: torch.dtype, device: torch.device):
+    if options.solver_type == SolverType.SCHUR_COMPLEMENT:
+        from rootba_tpu_torch.solver.explicit_sc import SCLinearizer
+
+        return SCLinearizer(bp, options, dtype, device)
+    if options.solver_type == SolverType.POWER_SCHUR_COMPLEMENT:
+        from rootba_tpu_torch.solver.explicit_sc import PowerSCLinearizer
+
+        return PowerSCLinearizer(bp, options, dtype, device)
     if options.solver_type != SolverType.SQUARE_ROOT:
         raise NotImplementedError(
             f"solver {options.solver_type} is not ported yet (ROADMAP.md, "
-            f"queue 1: SC and PoBA)")
+            f"queue 1: CERES baselines)")
     if options.kernel_layout != "flat":
         raise NotImplementedError(
             f"kernel_layout={options.kernel_layout!r} is not ported yet "
@@ -518,6 +599,7 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     summary.minimizer_time_in_seconds = time.monotonic() - timer_minimizer
     summary.postprocessor_time_in_seconds = 0.0
     summary.total_time_in_seconds = time.monotonic() - timer_total
+    summary.num_threads_given = options.num_threads
     summary.num_threads_used = 1
     finish_solve(summary, linearizer.linear_solver_type)
     if verbose:

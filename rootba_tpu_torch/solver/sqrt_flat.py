@@ -36,6 +36,7 @@ from rootba_tpu_torch.solver.explicit_sc import sc_matvec_dense
 from rootba_tpu_torch.solver.linearization import (
     POSE_SIZE,
     BsrMatvecIndex,
+    CamCsrIndex,
     CamState,
     CamStreamIndex,
     PairStreamIndex,
@@ -49,6 +50,7 @@ from rootba_tpu_torch.solver.linearization import (
     bsr_table_matvec,
     cam_gram_stream,
     cam_reduce_stream,
+    csr_cam_reduce,
     gather_cam_planes,
     packed_cam_table,
     segment_sum,
@@ -101,11 +103,14 @@ def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
                    huber_parameter, use_valid_only, jacobi_eps,
                    jacobi_scaling, num_cameras,
                    cam_strips: Optional[CamStreamIndex] = None,
-                   with_gram: bool = False):
+                   with_gram: bool = False,
+                   csr: Optional[CamCsrIndex] = None):
     """Stage 1: linearize + Jl column scaling + undamped Jl QR + jacobi
     pose scaling, all buckets in one pass (reference get_stage1,
-    linearization_qr.hpp:634-712). Returns (FlatLin, pose_scale,
-    failures)."""
+    linearization_qr.hpp:634-712). The per-camera diag2 reduce goes
+    through the camera stream (explicit modes), else the camera CSR
+    (reduction_alg != 0), else a segment sum. Returns (FlatLin,
+    pose_scale, failures)."""
     from rootba_tpu_torch.ops.planar import robust_sqrt_weight, snavely_planes
 
     table = packed_cam_table(cams)
@@ -174,6 +179,9 @@ def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
                                dim1=1, dim2=2)
     elif cam_strips is not None:
         diag2 = cam_reduce_stream(tuple(d2_parts), buckets, cam_strips)
+    elif csr is not None:
+        diag2 = csr_cam_reduce([d.reshape(-1, P9) for d in d2_parts], csr,
+                               num_cameras)
     else:
         diag2 = segment_sum(
             torch.cat([d.reshape(-1, P9) for d in d2_parts]),
@@ -191,11 +199,14 @@ def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
 def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
                 *, precond_jacobi: bool = False,
                 precond_diagonal: bool = False, with_precond: bool = True,
-                cam_strips: Optional[CamStreamIndex] = None) -> FlatStage2:
+                cam_strips: Optional[CamStreamIndex] = None,
+                csr: Optional[CamCsrIndex] = None) -> FlatStage2:
     """Stage 2 (reference get_stage2, linearization_qr.hpp:716-815):
     landmark damping via the 6x3 re-QR, RHS, preconditioner.
     with_precond=False skips the per-obs Gram preconditioner pass (the
-    explicit mode takes its blocks from the assembled H)."""
+    explicit mode takes its blocks from the assembled H). The RHS
+    reduces as stage1's diag2; the preconditioner blocks by a segment
+    sum, as in the JAX package."""
     dtype = lin.Jp[0].dtype
     device = lin.Jp[0].device
     eye3 = torch.eye(3, dtype=dtype, device=device)
@@ -249,6 +260,9 @@ def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
         ybp.append(_map_rows(rhs_chunk, [q_b, r_b, jp_b], L, n))
     if cam_strips is not None:
         b = cam_reduce_stream(tuple(ybp), buckets, cam_strips)
+    elif csr is not None:
+        b = csr_cam_reduce([y.reshape(-1, P9) for y in ybp], csr,
+                           num_cameras)
     else:
         b = segment_sum(torch.cat([y.reshape(-1, P9) for y in ybp]),
                         _cam_flat(buckets), num_cameras)
@@ -342,10 +356,12 @@ def flat_assemble_rcs_bsr(lin: FlatLin, stage2: FlatStage2, pairs,
 
 
 def flat_matvec(lin: FlatLin, stage2: FlatStage2, buckets, num_cameras,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor,
+                csr: Optional[CamCsrIndex] = None) -> torch.Tensor:
     """y = [(Q2'Jp)'(Q2'Jp) + lam I] x (right_multiply,
     linearization_qr.hpp:823-825), with the deferred pose scale:
-    y = lam x + S reduce(Jp_u' ... Jp_u (S x))."""
+    y = lam x + S reduce(Jp_u' ... Jp_u (S x)), the per-camera reduce
+    through the camera CSR when given, else a segment sum."""
     xs = x * lin.pose_scale
     ybp = []
     for bucket, q_b, jp_b in zip(buckets, stage2.Q1h, lin.Jp):
@@ -361,8 +377,11 @@ def flat_matvec(lin: FlatLin, stage2: FlatStage2, buckets, num_cameras,
         wp0 = w0 - torch.sum(qf[:, :3] * t3e, dim=1)
         wp1 = w1 - torch.sum(qf[:, 3:] * t3e, dim=1)
         ybp.append(jpf[:, :P9] * wp0[:, None] + jpf[:, P9:] * wp1[:, None])
-    red = segment_sum(torch.cat(ybp, dim=0), _cam_flat(buckets),
-                      num_cameras)
+    if csr is not None:
+        red = csr_cam_reduce(ybp, csr, num_cameras)
+    else:
+        red = segment_sum(torch.cat(ybp, dim=0), _cam_flat(buckets),
+                          num_cameras)
     return stage2.lam.to(x.dtype) * x + lin.pose_scale * red
 
 
@@ -495,6 +514,11 @@ class FlatSqrtLinearizer(LinearizerBase):
             if self.bsr_rcs:
                 from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
 
+                # the stream reducers take every per-camera sum of BSR
+                # mode, so the camera CSR is never built (as in the JAX
+                # package's stream BSR route)
+                self.cam_csr = None
+
                 self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
                     pairs_host.pair_row, pairs_host.pair_col, N),
                     self.device)
@@ -518,14 +542,16 @@ class FlatSqrtLinearizer(LinearizerBase):
             self.options.use_projection_validity_check(), self.jacobi_eps,
             self.options.jacobi_scaling, self.num_cameras,
             cam_strips=self.cam_strips,
-            with_gram=self.explicit_rcs or self.bsr_rcs)
+            with_gram=self.explicit_rcs or self.bsr_rcs,
+            csr=None if self.cam_strips is not None else self.cam_csr)
 
     def stage2(self, lins: FlatLin, lam: torch.Tensor):
         N = self.num_cameras
         if not (self.explicit_rcs or self.bsr_rcs):
             return flat_stage2(lins, self.buckets, lam, N,
                                precond_jacobi=self.precond_jacobi,
-                               precond_diagonal=self.precond_diag), None
+                               precond_diagonal=self.precond_diag,
+                               csr=self.cam_csr), None
         # explicit RCS: assemble H once, then CG is dense GEMVs (or the
         # K3 kernel) or block-sparse products; SCHUR_JACOBI blocks are
         # H's diagonal (free), forced-JACOBI keeps stage2's own Jp'Jp
@@ -575,9 +601,11 @@ class FlatSqrtLinearizer(LinearizerBase):
                 def matvec(x):
                     return sc_matvec_dense(H, x)
             else:
+                csr = self.cam_csr
+
                 def matvec(x):
                     return flat_matvec(lins, stage2, self.buckets,
-                                       self.num_cameras, x)
+                                       self.num_cameras, x, csr=csr)
             # explicit per-block inverse once per solve (ops/block9)
             pinv = chol9_inv(stage2.precond_chol)
             res = pcg(matvec, lambda r: inv9_apply(pinv, r), stage2.b,

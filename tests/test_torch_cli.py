@@ -30,8 +30,8 @@ def _write_problem(path):
 
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
-    """Importing the port and solving on the CPU leaves jax and the JAX
-    package out of sys.modules."""
+    """Importing the port and solving on the CPU with each of its solvers
+    leaves jax and the JAX package out of sys.modules."""
     prog = f"""
 import sys
 sys.path.insert(0, {str(REPO)!r})
@@ -41,11 +41,16 @@ from rootba_tpu_torch.bal.synthetic import generate_synthetic_bal
 from rootba_tpu_torch.config.options import SolverOptions
 from rootba_tpu_torch.solver.lm import bundle_adjust
 import rootba_tpu_torch.cli.bal, rootba_tpu_torch.cli.bal_qr
-p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
-p.filter_obs(0.1)
-s = bundle_adjust(p, SolverOptions(use_double=False, verbosity_level=0,
-                                   max_num_iterations=3), device="cpu")
-assert s.final_cost.all.error < s.initial_cost.all.error
+import rootba_tpu_torch.cli.bal_sc, rootba_tpu_torch.cli.bal_power_sc
+from rootba_tpu_torch.config.options import SolverType
+for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"):
+    p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
+    p.filter_obs(0.1)
+    s = bundle_adjust(p, SolverOptions(use_double=False, verbosity_level=0,
+                                       max_num_iterations=3,
+                                       solver_type=SolverType(solver)),
+                      device="cpu")
+    assert s.final_cost.all.error < s.initial_cost.all.error, solver
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "rootba_tpu"
        or m.startswith("rootba_tpu.")]
@@ -123,7 +128,7 @@ def test_cli_help_and_dump_config(capsys):
 
 @pytest.mark.parametrize("argv", [["--num-devices", "2"],
                                   ["--checkpoint-path", "f.npz"],
-                                  ["--power-order", "3"],
+                                  ["--baseline-method", "lm"],
                                   ["--defer-stage-sync", "false"],
                                   ["--strip-min-group", "0"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
@@ -135,6 +140,35 @@ def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
         run_app("test", ["--dump-config", *argv])
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_config_file_keys_of_the_reference(tmp_path, capsys):
+    """A config file with the JAX package's keys debug, num_threads,
+    use_householder_marginalization, staged_execution and reduction_alg
+    loads (no unused-key exit), and --dump-config prints them; their
+    flags parse."""
+    from rootba_tpu_torch.cli.bal import run_app
+
+    (tmp_path / "rootba_config.toml").write_text(
+        "[solver]\ndebug = true\nnum_threads = 4\n"
+        "use_householder_marginalization = false\n"
+        "staged_execution = false\nreduction_alg = 0\npower_order = 7\n")
+    cwd = os.getcwd()
+    try:
+        assert run_app("test", ["-C", str(tmp_path), "--dump-config"]) == 0
+        out = capsys.readouterr().out
+        for line in ("debug = true", "num_threads = 4",
+                     "use_householder_marginalization = false",
+                     "staged_execution = false", "reduction_alg = 0",
+                     "power_order = 7"):
+            assert line in out, line
+        assert run_app("test", ["-C", str(tmp_path), "--dump-config",
+                                "--reduction-alg", "2", "--num-threads",
+                                "5"]) == 0
+        out = capsys.readouterr().out
+        assert "reduction_alg = 2" in out and "num_threads = 5" in out
+    finally:
+        os.chdir(cwd)
 
 
 def test_cli_defaults_to_the_card(tmp_path):
@@ -166,7 +200,7 @@ def test_unported_routes_raise(synthetic_problem):
     for kw in (dict(pair_gather="strips"),
                dict(sqrt_rcs_mode="bsr", pair_gather="obs"),
                dict(kernel_layout="einsum"),
-               dict(solver_type=SolverType.SCHUR_COMPLEMENT)):
+               dict(solver_type=SolverType.CERES)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_linearizer(bp, SolverOptions(**kw), torch.float64, cpu)
 
