@@ -20,6 +20,11 @@ table and the fused-W stream factors, held to the attempt loop with the
 packed table and W tables; float32 timed and held to float64; every
 K1/K2 call of the float64 solve and of one float32 solve held against
 the kernel's twin) --
+resumes the final-3068 (CLI, host LM driver) and ladybug-49 solves from
+a checkpoint and holds them to the straight solves bit for bit, holds
+the numpy LM baseline (host) to the card's trajectory and scipy's TRF
+to its final cost, the native BAL tokenizer to the Python one and a
+solve from a `.cereal` file to the solve from the text --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -29,12 +34,14 @@ yardstick (device time from a profiler trace, with the names of the
 kernels in it), times the CG operators at the final-3068 system, and
 prints
 
+    {"checkpoint_baselines_formats": {...}, "card": ...}
+    {"sc": {...}, "phase_walls_s": {...}}
     {"bsr_operators": [...]}
     <nvidia-smi name, power limit>
     {"kernels": [...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-as its last four lines. Exits non-zero, printing no result, without a
+as its last six lines. Exits non-zero, printing no result, without a
 CUDA device or without the repository's package beside it. It imports
 nothing of JAX or of the JAX package. Scratch files go to
 build/chip_smoke/ (listed in .gitignore).
@@ -819,7 +826,7 @@ def k3_bound(n_rows: int, lanes: int, iters: int, resets: int) -> dict:
 
 
 def counted_run(bal_path: Path, iters: int, tag: str, extra=(),
-                run=None) -> tuple:
+                run=None, tries: int = 3) -> tuple:
     """One solve of the main path through the CLI (or run(), a callable
     that solves and returns the ba_log), with the launch counts set to 0
     just before it and read just after, under a profiler trace of the
@@ -827,7 +834,9 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=(),
     over the solve}). Each kernel's launches in the trace must equal its
     wrapper's count. The trace's warm-up step (one small kernel) and
     TRACE_MARGIN_S at the active step's edges keep it from losing the
-    solve's first or last launch."""
+    solve's first or last launch; a trace that still lost launches (one
+    has lost all of a solve's) is taken again with the solve, up to
+    `tries` traces, as traced_ms does."""
     import time
 
     import torch
@@ -835,32 +844,39 @@ def counted_run(bal_path: Path, iters: int, tag: str, extra=(),
 
     from rootba_tpu_torch.ops import kernels
 
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-        prof.step()
-        time.sleep(TRACE_MARGIN_S)
-        kernels.reset_launches()
-        log = run() if run is not None else run_cli(bal_path, iters, tag,
-                                                    extra)
-        launches = dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-        prof.step()
     by_name = {v: k for k, v in KERNEL_NAMES.items()}
-    us = dict.fromkeys(KERNEL_NAMES, 0.0)
-    seen = dict.fromkeys(KERNEL_NAMES, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = by_name.get(short_name(e.name).split("<")[0])
-            if k is not None:
-                us[k] += e.time_range.elapsed_us()
-                seen[k] += 1
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+            prof.step()
+            time.sleep(TRACE_MARGIN_S)
+            kernels.reset_launches()
+            log = run() if run is not None else run_cli(bal_path, iters,
+                                                        tag, extra)
+            launches = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+            prof.step()
+        us = dict.fromkeys(KERNEL_NAMES, 0.0)
+        seen = dict.fromkeys(KERNEL_NAMES, 0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = by_name.get(short_name(e.name).split("<")[0])
+                if k is not None:
+                    us[k] += e.time_range.elapsed_us()
+                    seen[k] += 1
+        if seen == launches:
+            break
+        print(f"[phase 6] {tag}: trace {attempt} of {tries} holds the "
+              f"launches {seen}, the wrappers counted {launches}",
+              flush=True)
     check(seen == launches, f"{tag}: launches in the trace {seen}, by "
-                            f"the wrappers' counts {launches}")
+                            f"the wrappers' counts {launches}, in each "
+                            f"of {tries} traces")
     return log, launches, {k: v / 1e3 for k, v in us.items()}
 
 
@@ -1961,8 +1977,245 @@ def final4585_phase() -> dict:
     return counts, {"float64": tw.stats, "float32": tw32.stats}
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: checkpoint/resume, the CERES baselines, the host formats
+
+# LM iterations of the straight checkpoint runs, and the iteration whose
+# checkpoint the resumed runs start from
+CKPT_ITERS = {"final3068": (4, 2), "ladybug": (10, 5)}
+
+
+def same_trajectory(what: str, got: dict, want: dict) -> None:
+    """Two ba_logs with the same costs, trust-region radii, flags and CG
+    counts, bit for bit."""
+    for key in ("cost", "trust_region_radius", "step_is_successful",
+                "linear_solver_iterations"):
+        check(got[key] == want[key], f"{what}: {key} {got[key]} against "
+                                     f"the straight run's {want[key]}")
+
+
+def checkpoint_phase(final: Path, lady_setup: "SharedSetup") -> dict:
+    """Phase 12: a solve resumed from a checkpoint equals the straight
+    solve bit for bit. final-3068 f32 through the CLI with the host LM
+    driver (BSR packed): a straight run, run A writing a checkpoint
+    after every iteration up to the split, run B resumed from A's file;
+    then the same in process on the ladybug-49 twin (dense RCS, the
+    cluster K3). B's launch counts show K1 and K2 (and K3 at ladybug)."""
+    import numpy as np
+    import torch
+
+    from rootba_tpu_torch.log.ba_log import build_log_dict
+    from rootba_tpu_torch.ops import kernels
+    from rootba_tpu_torch.solver import lm
+    from rootba_tpu_torch.utils import checkpoint as ck
+    from rootba_tpu_torch.utils.device import resolve_device
+
+    wd = WORK / "checkpoint"
+    wd.mkdir(parents=True, exist_ok=True)
+    out = {}
+    writes = []
+    real_save = ck.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t = time.monotonic()
+        real_save(*a, **kw)
+        writes.append(time.monotonic() - t)
+
+    def expect_launches(tag, n, kern):
+        for k in kern:
+            check(n[k] > 0, f"{tag}: kernel {k} launched {n[k]} times {n}")
+
+    # final-3068 through the CLI
+    iters, split = CKPT_ITERS["final3068"]
+    path = wd / "final3068.npz"
+    if path.exists():
+        path.unlink()
+    host = ("--lm-loop", "host")
+
+    def state_to(tag):
+        return ("--save-output", "--output-optimized-path",
+                str(wd / f"final3068_{tag}.npz"))
+
+    t = time.monotonic()
+    straight = run_cli(final, iters, "ckpt_straight",
+                       host + state_to("straight"))
+    straight_s = time.monotonic() - t
+    with patched(ck, save_checkpoint=timed_save):
+        run_cli(final, split, "ckpt_a", host + (
+            "--checkpoint-path", str(path), "--checkpoint-interval", "1"))
+    check(len(writes) == split + 1, f"final3068 run A: {len(writes)} "
+                                    f"checkpoint writes, want {split + 1}")
+    kernels.reset_launches()
+    resumed = run_cli(final, iters, "ckpt_b", host + (
+        "--checkpoint-path", str(path)) + state_to("resumed"))
+    n = dict(kernels.LAUNCHES)
+    expect_launches("final3068 run B", n, ("outer81_fold", "w_build"))
+    same_trajectory("final3068 f32 resumed", resumed, straight)
+    with np.load(wd / "final3068_straight.npz") as a, \
+            np.load(wd / "final3068_resumed.npz") as b:
+        check(sorted(a.files) == sorted(b.files)
+              and all(np.array_equal(a[k], b[k]) for k in a.files),
+              "final3068 f32 resumed: final state differs from the "
+              "straight run's")
+    out["final3068"] = dict(
+        iterations=iters, split=split, costs=straight["cost"],
+        cg_iterations=straight["linear_solver_iterations"][1:],
+        run_b_launches=n, checkpoint_bytes=path.stat().st_size,
+        write_s=list(writes), straight_cli_wall_s=straight_s)
+    print(f"[phase 12] final-3068 twin f32, host LM driver: resumed at "
+          f"iteration {split + 1} of {iters}, costs, radii, flags, CG "
+          f"counts and final state bit-equal to the straight run "
+          f"({straight['cost']}); run B launches {n}; checkpoint "
+          f"{path.stat().st_size} bytes, written in "
+          f"{[round(w, 4) for w in writes]} s", flush=True)
+
+    # ladybug-49 in process
+    iters, split = CKPT_ITERS["ladybug"]
+    path = wd / "ladybug.npz"
+    if path.exists():
+        path.unlink()
+    dev = resolve_device("cuda")
+
+    def solve(**kw):
+        with lady_setup:
+            return lm.optimize_lm(lady_setup.bp, lady_setup.solver(
+                use_double=False, lm_loop="host", **kw), device=dev)
+
+    st0, s0 = solve(max_num_iterations=iters)
+    writes.clear()
+    with patched(ck, save_checkpoint=timed_save):
+        solve(max_num_iterations=split, checkpoint_path=str(path),
+              checkpoint_interval=1)
+    kernels.reset_launches()
+    st1, s1 = solve(max_num_iterations=iters, checkpoint_path=str(path))
+    n = dict(kernels.LAUNCHES)
+    expect_launches("ladybug run B", n,
+                    ("outer81_fold", "w_build", "pcg_dense_cluster"))
+    same_trajectory("ladybug f32 resumed", build_log_dict(s1),
+                    build_log_dict(s0))
+    check(all(torch.equal(a, b) for a, b in zip(
+        (*st0.cams, *st0.lm_ps), (*st1.cams, *st1.lm_ps))),
+        "ladybug f32 resumed: final state differs from the straight run's")
+    costs = [i.cost.all.error for i in s0.iterations]
+    out["ladybug"] = dict(iterations=iters, split=split, costs=costs,
+                          run_b_launches=n,
+                          checkpoint_bytes=path.stat().st_size,
+                          write_s=list(writes))
+    print(f"[phase 12] ladybug-49 twin f32 in process: resumed at "
+          f"iteration {split + 1} of {iters} bit-equal to the straight run "
+          f"(costs {costs}); run B launches {n}; checkpoint "
+          f"{path.stat().st_size} bytes, written in "
+          f"{[round(w, 4) for w in writes]} s", flush=True)
+    return out
+
+
+def baselines_phase(lady: Path) -> dict:
+    """Phase 13: the CERES baselines on the host against the card, on
+    the ladybug-49 twin in f64, 10 LM iterations, eta 1e-5. The numpy
+    LM (`bal_ceres --baseline-method lm`): accepted costs within rel
+    5e-3 of the port's SQUARE_ROOT host-loop solve on the card
+    (tests/test_lm_end2end.py::test_numpy_lm_step_comparable). scipy's
+    TRF (`--baseline-method trf`, 10 evaluations): the card's solve
+    reaches a cost at most 1.02 times TRF's
+    (tests/test_lm_end2end.py::test_against_external_baseline).
+    Importing scipy is the check that the machine has it."""
+    import scipy
+
+    flags = ("--eta", "1e-5")
+    t = time.monotonic()
+    card = run_cli(lady, 10, "baseline_card", flags + ("--lm-loop", "host"),
+                   use_double=True)
+    card_s = time.monotonic() - t
+    summarize_log(card, "baseline_card")
+    out = {"scipy": scipy.__version__, "card_cli_s": card_s,
+           "card_costs": card["cost"]}
+    for name, method in (("numpy_lm", "lm"), ("trf", "trf")):
+        t = time.monotonic()
+        base = run_cli(lady, 10, f"baseline_{name}",
+                       flags + ("--baseline-method", method),
+                       use_double=True, solver="CERES")
+        base_s = time.monotonic() - t
+        summarize_log(base, f"baseline_{name}")
+        r = dict(host_s=base_s, costs=base["cost"],
+                 solver_type=base["_static"]["solver"]["solver_type"])
+        if method == "lm":
+            c1 = [c for c, ok in zip(card["cost"], card["step_is_successful"])
+                  if ok]
+            c2 = [c for c, ok in zip(base["cost"], base["step_is_successful"])
+                  if ok]
+            rel = max(abs(a - b) / max(a, 1.0) for a, b in zip(c1, c2))
+            check(len(c2) >= 5 and rel < 5e-3,
+                  f"numpy LM accepted costs {c2} against the card's {c1}: "
+                  f"rel {rel} (tol 5e-3)")
+            r["max_rel"] = rel
+            what = f"accepted costs within rel {rel:.2e} of the card's"
+        else:
+            ratio = card["cost"][-1] / base["cost"][-1]
+            check(ratio <= 1.02, f"TRF final cost {base['cost'][-1]}, the "
+                                 f"card's {card['cost'][-1]}: ratio {ratio}")
+            r["card_over_trf"] = ratio
+            what = f"the card's final cost {ratio:.6f} of TRF's"
+        out[name] = r
+        print(f"[phase 13] {r['solver_type']} on the ladybug-49 twin, f64, "
+              f"10 iterations: {base_s:.3f} s on the host (the card's CLI "
+              f"solve {card_s:.3f} s), costs {base['cost'][0]:.6f} -> "
+              f"{base['cost'][-1]:.6f}; {what}", flush=True)
+    return out
+
+
+def formats_phase(final: Path, lady: Path) -> dict:
+    """Phase 14: the host formats. The native tokenizer (built with g++;
+    unavailable is a failure) against the Python tokenizer on the
+    final-3068 twin's text, equal arrays, both timed; the ladybug-49
+    twin through `.cereal` and back, equal arrays, and its CLI solve
+    from the `.cereal` file bit-equal to the solve from the text."""
+    import numpy as np
+
+    from rootba_tpu_torch.bal import problem as P
+    from rootba_tpu_torch.bal import rootba_io
+    from rootba_tpu_torch.native import runtime as native
+
+    t = time.monotonic()
+    check(native.available(), "the native tokenizer is not available "
+                              "(g++ build of native/src failed)")
+    build_s = time.monotonic() - t
+    t = time.monotonic()
+    a = native.tokenize_file(str(final))
+    native_s = time.monotonic() - t
+    t = time.monotonic()
+    b = P.tokenize_numbers_plain(str(final))
+    python_s = time.monotonic() - t
+    check(a.shape == b.shape and np.array_equal(a, b),
+          f"final3068 text: native tokens {a.shape} differ from Python's "
+          f"{b.shape}")
+    p = P.load_bal(str(lady), quiet=True)
+    cer = WORK / "ladybug-twin.cereal"
+    rootba_io.save_rootba(p, str(cer))
+    q = rootba_io.load_rootba(str(cer), quiet=True)
+    check(all(np.array_equal(getattr(p, k), getattr(q, k)) for k in (
+        "cam_q", "cam_t", "cam_intr", "lm_p", "obs_lm", "obs_cam",
+        "obs_uv")), "ladybug .cereal round trip changed the problem")
+    txt_log = run_cli(lady, 5, "formats_txt")
+    cer_log = run_cli(cer, 5, "formats_cereal")
+    check(txt_log["cost"] == cer_log["cost"],
+          f"ladybug from .cereal: costs {cer_log['cost']} against "
+          f"{txt_log['cost']} from the text")
+    out = dict(tokens=int(a.size), text_bytes=final.stat().st_size,
+               native_available_s=build_s, native_s=native_s,
+               python_s=python_s, cereal_bytes=cer.stat().st_size,
+               costs=txt_log["cost"])
+    print(f"[phase 14] final-3068 text ({final.stat().st_size} bytes, "
+          f"{a.size} tokens): native tokenizer {native_s:.3f} s, Python "
+          f"{python_s:.3f} s, equal arrays (library ready in "
+          f"{build_s:.3f} s); ladybug .cereal ({cer.stat().st_size} bytes) "
+          f"round trip exact, its 5-iteration f32 solve bit-equal to the "
+          f"text's ({txt_log['cost'][-1]!r})", flush=True)
+    return out
+
+
 PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
-          "final3068", "determinism", "sc", "final4585", "traced")
+          "final3068", "determinism", "sc", "checkpoint", "baselines",
+          "formats", "final4585", "traced")
 
 
 def main(argv=None) -> int:
@@ -2028,10 +2281,14 @@ def partial_run(only, want, lap, dev) -> int:
     if want("small"):
         small_cross_check()
         lap("phase 5")
-    lady, traf, final = (write_twin(n) if want(p) or want("sc") else None
-                         for n, p in (("ladybug", "ladybug"),
-                                      ("trafalgar", "trafalgar"),
-                                      ("final3068", "final3068")))
+    # the twins each phase reads
+    need = {"ladybug": ("ladybug", "sc", "checkpoint", "baselines",
+                        "formats"),
+            "trafalgar": ("trafalgar", "sc", "determinism"),
+            "final3068": ("final3068", "sc", "determinism", "checkpoint",
+                          "formats")}
+    lady, traf, final = (write_twin(n) if any(map(want, ps)) else None
+                         for n, ps in need.items())
     if want("determinism") or want("sc"):
         final_setup = SharedSetup(final)
         if want("determinism"):
@@ -2040,6 +2297,15 @@ def partial_run(only, want, lap, dev) -> int:
         if want("sc"):
             sc_poba_phase(lady, traf, final, final_setup, errs)
             lap("phases 10-11")
+    if want("checkpoint"):
+        checkpoint_phase(final, SharedSetup(lady))
+        lap("phase 12")
+    if want("baselines"):
+        baselines_phase(lady)
+        lap("phase 13")
+    if want("formats"):
+        formats_phase(final, lady)
+        lap("phase 14")
     if want("final4585"):
         final4585_phase()
         lap("phase 8")
@@ -2275,6 +2541,14 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     sc_out, sc_checked = sc_poba_phase(lady, traf, final, final_setup, errs)
     lap("phases 10-11")
 
+    # phases 12-14: checkpoint/resume, the CERES baselines, the formats
+    host_out = {"checkpoint": checkpoint_phase(final, SharedSetup(lady))}
+    lap("phase 12")
+    host_out["baselines"] = baselines_phase(lady)
+    lap("phase 13")
+    host_out["formats"] = formats_phase(final, lady)
+    lap("phase 14")
+
     phase8, tw4585 = final4585_phase()
     for k, st in tw4585["float32"].items():
         errs[k] = max(errs[k], st["max_abs_err"])
@@ -2412,6 +2686,8 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             r["k1_device_ms_per_attempt"] = ms["outer81_fold"] / attempts[p]
         r["card"] = smi
     lap("sc line")
+    print(json.dumps({"checkpoint_baselines_formats": host_out,
+                      "card": smi}))
     print(json.dumps({"sc": sc_out, "phase_walls_s": walls}))
     print(json.dumps({"bsr_operators": ops}))
     print(smi)

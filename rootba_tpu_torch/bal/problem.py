@@ -255,12 +255,22 @@ class BalProblem:
 _AXIS_FLIP = np.diag([1.0, -1.0, -1.0])
 
 
-def _tokenize_numbers(path: str) -> np.ndarray:
-    """Whitespace-separated numeric tokens of a text file as float64
-    (pure Python; the JAX package's native tokenizer is not copied)."""
+def tokenize_numbers_plain(path: str) -> np.ndarray:
+    """Whitespace-separated numeric tokens of a text file as float64, in
+    Python (the native tokenizer's plain version and fallback)."""
     with open(path, "rb") as fp:
         data = fp.read()
     return np.array(data.split(), dtype=np.float64)
+
+
+def _tokenize_numbers(path: str) -> np.ndarray:
+    """Whitespace-separated numeric tokens of a text file as float64:
+    the native tokenizer (native/runtime.py) when it is available."""
+    from rootba_tpu_torch.native import runtime as native
+
+    if native.available():
+        return native.tokenize_file(path)
+    return tokenize_numbers_plain(path)
 
 
 def load_bal(path: str, quiet: bool = False) -> BalProblem:
@@ -309,6 +319,78 @@ def load_bal(path: str, quiet: bool = False) -> BalProblem:
     return problem
 
 
+def load_bundler(path: str, quiet: bool = False) -> BalProblem:
+    """Parse bundler format (reference bal_problem.cpp:285-404): header
+    '# Bundle file v0.3' comment, then num_cams num_pts; per camera
+    f k1 k2, R (9), t (3); per point: pos(3), color(3), view list
+    (cam, key, x, y)."""
+    with open(path, "r") as fp:
+        lines = fp.readlines()
+    i = 0
+    while lines[i].lstrip().startswith("#"):
+        i += 1
+    tok_iter = iter(" ".join(lines[i:]).split())
+
+    def nxt():
+        return next(tok_iter)
+
+    num_cams = int(nxt())
+    num_pts = int(nxt())
+    cam_q_l, cam_t_l, cam_intr_l = [], [], []
+    # cameras with focal length 0 are uninitialized: the reference
+    # skips them and remaps indices (bal_problem.cpp:321-339), then
+    # drops observations that reference a skipped camera (:372-375)
+    cam_idx_mapping = {}
+    for c in range(num_cams):
+        intr = [float(nxt()), float(nxt()), float(nxt())]
+        R = np.array([float(nxt()) for _ in range(9)]).reshape(3, 3)
+        t = np.array([float(nxt()) for _ in range(3)])
+        if intr[0] == 0:
+            continue
+        cam_idx_mapping[c] = len(cam_q_l)
+        R = _AXIS_FLIP @ R
+        t = _AXIS_FLIP @ t
+        cam_q_l.append(nplie.quat_from_matrix(R))
+        cam_t_l.append(t)
+        cam_intr_l.append(intr)
+    cam_q = np.asarray(cam_q_l).reshape(-1, 4)
+    cam_t = np.asarray(cam_t_l).reshape(-1, 3)
+    cam_intr = np.asarray(cam_intr_l).reshape(-1, 3)
+    lm_p = np.zeros((num_pts, 3))
+    obs_lm_l, obs_cam_l, obs_uv_l = [], [], []
+    for m in range(num_pts):
+        lm_p[m] = [float(nxt()), float(nxt()), float(nxt())]
+        _ = [nxt() for _ in range(3)]  # color
+        nviews = int(nxt())
+        seen = set()
+        for _ in range(nviews):
+            cam = int(nxt())
+            _key = nxt()
+            x = float(nxt())
+            y = float(nxt())
+            if cam not in cam_idx_mapping:
+                continue  # observation of a skipped camera
+            if cam in seen:
+                # reference try_emplace CHECK(inserted),
+                # bal_problem.cpp:376-379
+                raise ValueError(
+                    f"Invalid file '{path}': duplicate observation")
+            seen.add(cam)
+            obs_lm_l.append(m)
+            obs_cam_l.append(cam_idx_mapping[cam])
+            obs_uv_l.append((x, -y))
+    problem = BalProblem(
+        cam_q, cam_t, cam_intr, lm_p,
+        np.array(obs_lm_l, dtype=np.int64),
+        np.array(obs_cam_l, dtype=np.int64),
+        np.array(obs_uv_l, dtype=np.float64), quiet)
+    problem.sort_observations()
+    if not quiet:
+        print(f"Loaded bundler problem ({num_cams} cams, {num_pts} lms, "
+              f"{problem.num_observations} obs) from '{path}'")
+    return problem
+
+
 def autodetect_input_type(path: str) -> DatasetType:
     """Reference bal_problem.cpp:124-135 (with npz standing in for the
     cereal-based 'rootba' binary format)."""
@@ -340,17 +422,17 @@ def load_normalized_bal_problem(
 
     if input_type == DatasetType.ROOTBA:
         if options.input.endswith(".cereal"):
-            raise NotImplementedError(
-                "the .cereal reader is not ported yet (ROADMAP.md, "
-                "queue 1: host formats)")
-        problem = BalProblem.load_npz(options.input)
-        problem.quiet = options.quiet
+            # reference cereal binary (bal_problem.cpp:407-417)
+            from rootba_tpu_torch.bal.rootba_io import load_rootba
+
+            problem = load_rootba(options.input, quiet=options.quiet)
+        else:
+            problem = BalProblem.load_npz(options.input)
+            problem.quiet = options.quiet
     elif input_type == DatasetType.BAL:
         problem = load_bal(options.input, options.quiet)
     elif input_type == DatasetType.BUNDLER:
-        raise NotImplementedError(
-            "the bundler reader is not ported yet (ROADMAP.md, queue 1: "
-            "host formats)")
+        problem = load_bundler(options.input, options.quiet)
     else:
         raise ValueError(f"unknown input type {input_type}")
     t_load = time.monotonic() - t0

@@ -1,5 +1,6 @@
 """`bal` executable: BA solve on one problem (reference app/bal.cpp
-:45-121), on the card unless `--device cpu` is given.
+:45-121), on the card unless `--device cpu` is given (the CERES
+baselines run on the host and need no card).
 
 Usage: python -m rootba_tpu_torch.cli.bal --input problem.txt [options]
 """
@@ -25,13 +26,16 @@ def run_app(summary_text: str, argv: Optional[List[str]] = None,
         PipelineTimingSummary,
         load_normalized_bal_problem,
     )
+    from rootba_tpu_torch.config.options import SolverType
     from rootba_tpu_torch.log.ba_log import save_log
     from rootba_tpu_torch.log.summary import SolverSummary
     from rootba_tpu_torch.solver.lm import bundle_adjust
     from rootba_tpu_torch.utils.device import resolve_device
 
-    # before any work: no card and no --device cpu is an error
-    device = resolve_device(device_name)
+    # before any work: no card and no --device cpu is an error, except
+    # for the CERES baselines, which run on the host
+    device = (device_name if options.solver.solver_type == SolverType.CERES
+              else resolve_device(device_name))
 
     dataset_summary = DatasetSummary()
     timing = PipelineTimingSummary()
@@ -44,11 +48,14 @@ def run_app(summary_text: str, argv: Optional[List[str]] = None,
     if options.dataset.save_output:
         t0 = time.monotonic()
         out_path = options.dataset.output_optimized_path
+        # .cereal -> reference binary layout (save_rootba,
+        # bal_problem.cpp:557-568); .txt/.bal -> reference-readable
+        # BAL text; anything else -> npz
         if out_path.endswith(".cereal"):
-            raise NotImplementedError(
-                "the .cereal writer is not ported yet (ROADMAP.md, queue "
-                "1: host formats); use .txt/.bal or .npz")
-        if out_path.endswith((".txt", ".bal")):
+            from rootba_tpu_torch.bal.rootba_io import save_rootba
+
+            save_rootba(problem, out_path)
+        elif out_path.endswith((".txt", ".bal")):
             problem.save_bal(out_path)
         else:
             problem.save_npz(out_path)

@@ -139,15 +139,15 @@ class BalDatasetOptions:
 class SolverOptions:
     """Reference: src/rootba/bal/solver_options.hpp:46-283, trimmed to the
     options the port reads. The JAX package's knobs of paths the port
-    does not have yet (the multi-device mesh, checkpoints, strip
-    gathers, the CERES baselines and the host driver's calibration
-    timing) are left out, so setting one is an unknown-key or
-    unknown-flag error."""
+    does not have yet (the multi-device mesh, strip gathers and the
+    host driver's calibration timing) are left out, so setting one is
+    an unknown-key or unknown-flag error."""
 
     solver_type: SolverType = opt(
         SolverType.SQUARE_ROOT,
-        help="SquareRoot | SchurComplement | PowerSchurComplement "
-             "(CERES raises: not ported)")
+        help="SquareRoot | SchurComplement | PowerSchurComplement | "
+             "Ceres (the host baselines of solver/numpy_lm.py and "
+             "solver/scipy_baseline.py, see baseline_method)")
     verbosity_level: int = opt(2, help="0 silent, 1 brief, 2 full",
                                range=(0, 2))
     debug: bool = opt(False, help="print extra debug info")
@@ -169,6 +169,13 @@ class SolverOptions:
     initial_trust_region_radius: float = opt(1e4, logscale=True)
     min_trust_region_radius: float = opt(1e-32, logscale=True)
     max_trust_region_radius: float = opt(1e16, logscale=True)
+    min_lm_diagonal: float = opt(
+        1e-6, logscale=True,
+        help="CERES baseline only (like the reference: manual solvers "
+             "ignore it, ceres/option_utils.cpp:97-98)")
+    max_lm_diagonal: float = opt(
+        1e32, logscale=True,
+        help="CERES baseline only (like the reference)")
     min_linear_solver_iterations: int = opt(0)
     max_linear_solver_iterations: int = opt(500)
     eta: float = opt(1e-1, help="CG forcing-sequence / q-tolerance")
@@ -180,6 +187,20 @@ class SolverOptions:
         help="SchurJacobi | Jacobi | Diagonal | PowerSchurComplement "
              "(the last for the SCHUR_COMPLEMENT solver only)")
     function_tolerance: float = opt(1e-6)
+    gradient_tolerance: float = opt(
+        0.0, help="CERES baseline termination (gtol); the manual "
+                  "solvers use function_tolerance only, like the "
+                  "reference optimize_lm_ours")
+    parameter_tolerance: float = opt(
+        0.0, help="CERES baseline termination (xtol); manual solvers "
+                  "ignore it, like the reference")
+    baseline_method: str = opt(
+        "trf", help="CERES-baseline backend: 'trf' (scipy "
+                    "least_squares trust-region-reflective; final-cost "
+                    "cross-checks) or 'lm' (plain-numpy LM running the "
+                    "reference's exact lambda/nu/rho protocol with "
+                    "dense Schur-complement normal equations; "
+                    "step-comparable per-iteration trajectories)")
 
     use_double: bool = opt(True, help="float64 instead of float32")
     use_householder_marginalization: bool = opt(
@@ -219,6 +240,16 @@ class SolverOptions:
                      "says; 'fast' (default) leaves the choice to "
                      "lm_loop. Stage times come from CUDA events at the "
                      "stage boundaries in either mode")
+    checkpoint_path: str = opt(
+        "", help="mid-solve checkpoint file (npz); if it exists, the "
+                 "host-loop LM driver resumes from it (same solver "
+                 "config required). Empty disables checkpointing. The "
+                 "fused device loop does not checkpoint (it is for "
+                 "small/fast problems); use lm_loop=host for "
+                 "checkpointed runs")
+    checkpoint_interval: int = opt(
+        0, help="write the checkpoint every this many LM iterations "
+                "(0 = only resume, never write)")
     dense_rcs_max_cameras: int = opt(
         2048, help="assemble the reduced camera system as one dense "
                    "[9N, 9N] matrix (CG by dense GEMVs) when "
@@ -267,7 +298,8 @@ class SolverOptions:
     def __post_init__(self):
         # free-form string options: a typo must error, not silently
         # fall back to default behavior
-        allowed = {"lm_loop": ("auto", "fused", "host"),
+        allowed = {"baseline_method": ("trf", "lm"),
+                   "lm_loop": ("auto", "fused", "host"),
                    "timing_mode": ("fast", "measured"),
                    "kernel_layout": ("flat", "einsum"),
                    "pair_gather": ("stream", "strips", "obs"),
@@ -282,6 +314,25 @@ class SolverOptions:
 
     def use_projection_validity_check(self) -> bool:
         return self.optimized_cost != OptimizedCost.ERROR
+
+    def warn_inert_knobs(self) -> None:
+        """One-line warning per CERES-only knob set to a non-default
+        value, which the manual solvers do not act on (the reference
+        maps min/max_lm_diagonal to Ceres only, option_utils.cpp:96-97).
+        The JAX package's warning also names three inert knobs of its
+        own; the port documents those in their help texts."""
+        import warnings
+
+        inert = [
+            ("min_lm_diagonal", self.min_lm_diagonal, 1e-6),
+            ("max_lm_diagonal", self.max_lm_diagonal, 1e32),
+        ]
+        for name, value, default in inert:
+            if value != default:
+                warnings.warn(
+                    f"solver option '{name}={value}' is accepted but "
+                    f"inert in the manual solvers (CERES baseline only "
+                    f"for min/max_lm_diagonal)", stacklevel=3)
 
 
 @dataclass

@@ -7,9 +7,12 @@ the linearizer base with the host driver's stage calls, the lazy
 camera-CSR index and the SC/PoBA stage1 (`_stage1_common`),
 `create_linearizer` (SQUARE_ROOT on the flat layout, SCHUR_COMPLEMENT
 and POWER_SCHUR_COMPLEMENT in solver/explicit_sc.py), the host LM loop
-`optimize_lm` and `bundle_adjust`, which routes a problem to it or to
-the attempt-loop driver (solver/fused_lm.py). `state_from_numpy` /
-`state_to_numpy` carry a state across the two packages as numpy arrays.
+`optimize_lm` with its checkpoint/resume (utils/checkpoint.py) and
+`bundle_adjust`, which routes a problem to it or to the attempt-loop
+driver (solver/fused_lm.py), or for solver_type CERES to the host
+baselines (solver/numpy_lm.py, solver/scipy_baseline.py).
+`state_from_numpy` / `state_to_numpy` carry a state across the two
+packages as numpy arrays.
 
 The host loop keeps the reference minimizer's control flow
 (optimize_lm_ours, bal_bundle_adjustment.cpp:249-544): an outer loop
@@ -75,6 +78,7 @@ from rootba_tpu_torch.log.summary import (
 )
 from rootba_tpu_torch.solver.fused_lm import _cost_scalar, _StageClock
 from rootba_tpu_torch.solver.linearization import BucketIndex, CamState
+from rootba_tpu_torch.utils import checkpoint
 
 
 class BAState(NamedTuple):
@@ -371,9 +375,8 @@ def create_linearizer(bp: BucketedProblem, options: SolverOptions,
 
         return PowerSCLinearizer(bp, options, dtype, device)
     if options.solver_type != SolverType.SQUARE_ROOT:
-        raise NotImplementedError(
-            f"solver {options.solver_type} is not ported yet (ROADMAP.md, "
-            f"queue 1: CERES baselines)")
+        # CERES is bundle_adjust's host baseline, not a linearizer
+        raise ValueError(f"unknown solver type {options.solver_type}")
     if options.kernel_layout != "flat":
         raise NotImplementedError(
             f"kernel_layout={options.kernel_layout!r} is not ported yet "
@@ -407,9 +410,12 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     bal_bundle_adjustment.cpp:249-544) on `device`.
 
     Pass `linearizer` to reuse one already built (the solve starts from
-    the problem's initial state). `iteration_callback(it, state,
-    summary)` fires after every LM iteration; an exception in it aborts
-    the solve."""
+    the problem's initial state, or from options.checkpoint_path when
+    that file exists). `iteration_callback(it, state, summary)` fires
+    after every LM iteration; an exception in it aborts the solve.
+    With checkpoint_interval > 0 the state is written to
+    checkpoint_path after the callback of every checkpoint_interval-th
+    iteration."""
     if summary is None:
         summary = SolverSummary()
     verbose = options.verbosity_level >= 2
@@ -434,9 +440,35 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     linearizer.summary = summary
     linearizer.set_state(initial_state(bp, dtype, device))
 
+    # checkpoint/resume (the JAX package's addition; the reference has
+    # no mid-solve checkpointing): the state in the solver's dtype on
+    # `device`, the damping state, the iteration counter and the log
+    resume_it = None
+    ckpt_path = options.checkpoint_path
+    ckpt_interval = options.checkpoint_interval
+    if ckpt_path:
+        loaded = checkpoint.load_checkpoint(ckpt_path)
+        if loaded is not None:
+            cq, ct, ci, lm_ps_np, lam, lambda_vee, resume_it, its = loaded
+            linearizer.set_state(state_from_numpy(
+                {"q": cq, "t": ct, "intr": ci, "lm_ps": lm_ps_np}, dtype,
+                device))
+            summary.iterations = [checkpoint.iteration_from_dict(d)
+                                  for d in its]
+            if verbose:
+                print(f"Resumed from checkpoint '{ckpt_path}' at "
+                      f"iteration {resume_it} (lambda {lam:.2e})")
+
     def iteration_done():
+        """After every LM iteration: the callback, then the checkpoint
+        every checkpoint_interval iterations."""
         if iteration_callback is not None:
             iteration_callback(it, linearizer.state, summary)
+        if ckpt_path and ckpt_interval > 0 and it % ckpt_interval == 0:
+            checkpoint.save_checkpoint(
+                ckpt_path, linearizer.state, lam, lambda_vee, it,
+                [checkpoint.iteration_to_dict(s)
+                 for s in summary.iterations])
 
     def close_iteration(its, timer_iteration, cum=None):
         linearizer.finish_iteration()
@@ -454,7 +486,7 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     # same state
     ri_cache: Optional[ResidualInfoHost] = None
     terminated = False
-    it = 0
+    it = resume_it if resume_it is not None else 0
     while it <= max_lm_iter and not terminated:
         it_summary = IterationSummary(iteration=it)
         linearizer.start_iteration(it_summary)
@@ -616,19 +648,38 @@ def bundle_adjust(problem: BalProblem,
                   device: str | torch.device = "cuda") -> SolverSummary:
     """Solve a BalProblem in place (reference bundle_adjust_manual,
     bal_bundle_adjustment.cpp:549-...) on `device` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). solver_type CERES runs the host baselines
+    (numpy / scipy) and touches no device."""
     from rootba_tpu_torch.solver.fused_lm import optimize_lm_fused
     from rootba_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(str(device))
     if options is None:
         options = SolverOptions()
     if summary is None:
         summary = SolverSummary()
     if options.solver_type == SolverType.CERES:
-        raise NotImplementedError(
-            "the CERES baselines are not ported yet (ROADMAP.md, queue 1: "
-            "CERES baselines)")
+        # external-baseline path (the role of the reference's Ceres
+        # module, src/rootba/ceres/): 'trf' = scipy least_squares,
+        # 'lm' = plain-numpy LM with the reference's exact
+        # trust-region protocol (step-comparable trajectories). Host
+        # numpy/scipy: no device is resolved, none is needed
+        if options.baseline_method == "lm":
+            from rootba_tpu_torch.solver.numpy_lm import (
+                bundle_adjust_numpy_lm,
+            )
+
+            summary = bundle_adjust_numpy_lm(problem, options, summary)
+        else:
+            from rootba_tpu_torch.solver.scipy_baseline import (
+                bundle_adjust_scipy,
+            )
+
+            summary = bundle_adjust_scipy(problem, options, summary)
+        if timing is not None:
+            timing.optimize_time = summary.total_time_in_seconds
+        return summary
+    device = resolve_device(str(device))
+    options.warn_inert_knobs()
     bp = bucketize(problem, pow2_from=options.bucket_pow2_from)
     # routing as in the JAX package: the attempt loop up to
     # fused_obs_threshold observations, the host driver above it and

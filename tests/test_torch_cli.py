@@ -42,15 +42,26 @@ from rootba_tpu_torch.config.options import SolverOptions
 from rootba_tpu_torch.solver.lm import bundle_adjust
 import rootba_tpu_torch.cli.bal, rootba_tpu_torch.cli.bal_qr
 import rootba_tpu_torch.cli.bal_sc, rootba_tpu_torch.cli.bal_power_sc
+import rootba_tpu_torch.cli.bal_ceres
+from rootba_tpu_torch.bal import problem, rootba_io
 from rootba_tpu_torch.config.options import SolverType
-for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"):
-    p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
-    p.filter_obs(0.1)
-    s = bundle_adjust(p, SolverOptions(use_double=False, verbosity_level=0,
-                                       max_num_iterations=3,
-                                       solver_type=SolverType(solver)),
-                      device="cpu")
-    assert s.final_cost.all.error < s.initial_cost.all.error, solver
+from rootba_tpu_torch.native import runtime
+for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT",
+               "CERES"):
+    for method in (("trf", "lm") if solver == "CERES" else ("trf",)):
+        p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
+        p.filter_obs(0.1)
+        s = bundle_adjust(p, SolverOptions(
+            use_double=False, verbosity_level=0, max_num_iterations=3,
+            solver_type=SolverType(solver), baseline_method=method,
+            lm_loop="host", checkpoint_path=f"ck_{{solver}}_{{method}}.npz",
+            checkpoint_interval=1), device="cpu")
+        assert s.final_cost.all.error < s.initial_cost.all.error, solver
+rootba_io.save_rootba(p, "p.cereal")
+rootba_io.load_rootba("p.cereal")
+p.save_bal("p.txt")
+assert runtime.available()
+problem.load_bal("p.txt", quiet=True)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "rootba_tpu"
        or m.startswith("rootba_tpu.")]
@@ -127,8 +138,8 @@ def test_cli_help_and_dump_config(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--num-devices", "2"],
-                                  ["--checkpoint-path", "f.npz"],
-                                  ["--baseline-method", "lm"],
+                                  ["--strip-auto-obs-threshold", "1"],
+                                  ["--host-fused-attempt", "false"],
                                   ["--defer-stage-sync", "false"],
                                   ["--strip-min-group", "0"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
@@ -144,15 +155,19 @@ def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
 
 def test_config_file_keys_of_the_reference(tmp_path, capsys):
     """A config file with the JAX package's keys debug, num_threads,
-    use_householder_marginalization, staged_execution and reduction_alg
-    loads (no unused-key exit), and --dump-config prints them; their
-    flags parse."""
+    use_householder_marginalization, staged_execution and reduction_alg,
+    and the checkpoint and CERES-baseline keys, loads (no unused-key
+    exit), and --dump-config prints them; their flags parse."""
     from rootba_tpu_torch.cli.bal import run_app
 
     (tmp_path / "rootba_config.toml").write_text(
         "[solver]\ndebug = true\nnum_threads = 4\n"
         "use_householder_marginalization = false\n"
-        "staged_execution = false\nreduction_alg = 0\npower_order = 7\n")
+        "staged_execution = false\nreduction_alg = 0\npower_order = 7\n"
+        'checkpoint_path = "ck.npz"\ncheckpoint_interval = 3\n'
+        'baseline_method = "lm"\ngradient_tolerance = 1e-10\n'
+        "parameter_tolerance = 1e-09\nmin_lm_diagonal = 1e-05\n"
+        "max_lm_diagonal = 1e+20\n")
     cwd = os.getcwd()
     try:
         assert run_app("test", ["-C", str(tmp_path), "--dump-config"]) == 0
@@ -160,13 +175,20 @@ def test_config_file_keys_of_the_reference(tmp_path, capsys):
         for line in ("debug = true", "num_threads = 4",
                      "use_householder_marginalization = false",
                      "staged_execution = false", "reduction_alg = 0",
-                     "power_order = 7"):
+                     "power_order = 7", 'checkpoint_path = "ck.npz"',
+                     "checkpoint_interval = 3", 'baseline_method = "lm"',
+                     "gradient_tolerance = 1e-10",
+                     "parameter_tolerance = 1e-09",
+                     "min_lm_diagonal = 1e-05", "max_lm_diagonal = 1e+20"):
             assert line in out, line
         assert run_app("test", ["-C", str(tmp_path), "--dump-config",
                                 "--reduction-alg", "2", "--num-threads",
-                                "5"]) == 0
+                                "5", "--checkpoint-interval", "2",
+                                "--baseline-method", "trf"]) == 0
         out = capsys.readouterr().out
         assert "reduction_alg = 2" in out and "num_threads = 5" in out
+        assert ("checkpoint_interval = 2" in out
+                and 'baseline_method = "trf"' in out)
     finally:
         os.chdir(cwd)
 
@@ -200,7 +222,8 @@ def test_unported_routes_raise(synthetic_problem):
     for kw in (dict(pair_gather="strips"),
                dict(sqrt_rcs_mode="bsr", pair_gather="obs"),
                dict(kernel_layout="einsum"),
-               dict(solver_type=SolverType.CERES)):
+               dict(solver_type=SolverType.SCHUR_COMPLEMENT,
+                    pair_gather="strips")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_linearizer(bp, SolverOptions(**kw), torch.float64, cpu)
 
