@@ -24,7 +24,10 @@ resumes the final-3068 (CLI, host LM driver) and ladybug-49 solves from
 a checkpoint and holds them to the straight solves bit for bit, holds
 the numpy LM baseline (host) to the card's trajectory and scipy's TRF
 to its final cost, the native BAL tokenizer to the Python one and a
-solve from a `.cereal` file to the solve from the text --
+solve from a `.cereal` file to the solve from the text, holds the
+"strips" and "obs" pair gathers to the default "stream" at final-3068
+(BSR) and the W-free sandwich to the W tables at trafalgar-257 (dense),
+with every K1/K2 call of one attempt of each held against its twin --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -34,6 +37,7 @@ yardstick (device time from a profiler trace, with the names of the
 kernels in it), times the CG operators at the final-3068 system, and
 prints
 
+    {"strips": {...}, "card": ...}
     {"checkpoint_baselines_formats": {...}, "card": ...}
     {"sc": {...}, "phase_walls_s": {...}}
     {"bsr_operators": [...]}
@@ -41,7 +45,7 @@ prints
     {"kernels": [...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-as its last six lines. Exits non-zero, printing no result, without a
+as its last seven lines. Exits non-zero, printing no result, without a
 CUDA device or without the repository's package beside it. It imports
 nothing of JAX or of the JAX package. Scratch files go to
 build/chip_smoke/ (listed in .gitignore).
@@ -270,12 +274,18 @@ def spd_system(N: int, Nc: int, seed: int):
 
 def check_k1(dev, errs: dict) -> None:
     """K1 against its twin: run widths 1..64, K = 2 (Jp) and 3 (W), f32
-    and f64, slot counts ragged against the 64-slot tile, and per
-    (dtype, K) one stream of ~5,000 tiles, so that every block walks
-    through both stages of its copy pipeline several times."""
+    and f64, slot counts ragged against the 64-slot tile, per (dtype, K)
+    one stream of ~5,000 tiles, so that every block walks through both
+    stages of its copy pipeline several times, and one full chunk of
+    the strips and obs reducers (width 64, the final-3068 leftover
+    stream's chunk: linearization._chunk_slots of its rows)."""
     import torch
 
     from rootba_tpu_torch.ops import fold
+    from rootba_tpu_torch.solver.linearization import (
+        PAIR_WIDTH,
+        _chunk_slots,
+    )
 
     g = torch.Generator(device="cpu").manual_seed(5)
     for dtype in (torch.float32, torch.float64):
@@ -284,9 +294,12 @@ def check_k1(dev, errs: dict) -> None:
         # (rtol/atol 1e-5, the JAX package's kernel-vs-XLA test); f64
         # at its precision
         rtol = atol = 1e-5 if dtype == torch.float32 else 1e-12
+        itemsize = torch.empty((), dtype=dtype).element_size()
         for K in (2, 3):
+            chunk = _chunk_slots(9 * K * itemsize, PAIR_WIDTH) // PAIR_WIDTH
             for W, R in [(w, 3 * max(1, 64 // w) + 5)
-                         for w in (1, 2, 4, 8, 16, 32, 64)] + [(8, 40003)]:
+                         for w in (1, 2, 4, 8, 16, 32, 64)] + [
+                             (8, 40003), (PAIR_WIDTH, chunk)]:
                 # wider runs scaled to W = 16's spread of run sums, so
                 # that the same tolerance holds the same relative error
                 scale = min(1.0, (16 / W) ** 0.5)
@@ -304,7 +317,8 @@ def check_k1(dev, errs: dict) -> None:
                 check(close(got, ref, rtol, atol),
                       f"K1 {dtype} K={K} W={W} R={R}: max abs err {err}")
         print(f"[phase 2] K1 {str(dtype)[6:]}: W 1..64, K 2 and 3, ragged "
-              f"tiles and a 40,003-run stream: max abs err {worst:.3e} "
+              f"tiles, a 40,003-run stream and a strips chunk of "
+              f"{chunk} runs at W = 64 (K = 3): max abs err {worst:.3e} "
               f"(tol rtol=atol={rtol:g})", flush=True)
 
 
@@ -644,8 +658,10 @@ def summarize_log(d: dict, tag: str) -> dict:
 # and with the half table, the host LM driver, and BSR mode with the
 # fused-W stream factors; then SCHUR_COMPLEMENT in dense, BSR and scatter
 # mode, under the DIAGONAL and POWER_SCHUR_COMPLEMENT preconditioners
-# and through the host LM driver, and PoBA with dense E0, BSR E0 and the
-# implicit sweep
+# and through the host LM driver, PoBA with dense E0, BSR E0 and the
+# implicit sweep, the strips (dense, and leftover-free in BSR mode) and
+# obs pair gathers and the W-free sandwich (forced), and SC and PoBA on
+# strips and obs in BSR mode
 SC = dict(solver_type="SCHUR_COMPLEMENT")
 POBA = dict(solver_type="POWER_SCHUR_COMPLEMENT")
 SMALL_MODES = {
@@ -667,7 +683,17 @@ SMALL_MODES = {
     "poba_dense": (POBA, {}, (True, False)),
     "poba_bsr": (dict(POBA, dense_rcs_max_cameras=4), {}, (True, False)),
     "poba_implicit": (dict(POBA, dense_rcs_max_cameras=0), {},
-                      (True, False))}
+                      (True, False)),
+    "strips": (dict(pair_gather="strips"), {}, (True, False)),
+    "strips0_bsr": (dict(sqrt_rcs_mode="bsr", pair_gather="strips",
+                         strip_min_group=0), {}, (True, False)),
+    "obs": (dict(pair_gather="obs"), {}, (True, False)),
+    "sandwich": (dict(pair_gather="strips", strip_min_group=0),
+                 dict(_SANDWICH_MIN_SLOTS=1), (True, False)),
+    "sc_strips_bsr": (dict(SC, dense_rcs_max_cameras=4,
+                           pair_gather="strips"), {}, (True, False)),
+    "poba_obs_bsr": (dict(POBA, dense_rcs_max_cameras=4, pair_gather="obs"),
+                     {}, (True, False))}
 
 
 def solver_options(**kw):
@@ -714,9 +740,10 @@ def small_cross_check(only=None) -> None:
                 with patched(sqrt_flat, **globs), LoopSpy() as loops, \
                         FactorSpy() as factors:
                     s = bundle_adjust(p, opts, device=dev)
-                # the SC solvers build no W factors
-                kinds = ({"fused" if globs else "tables"} if sqrt_mode
-                         else set())
+                # the SC solvers and the sandwich build no W factors
+                kinds = (set() if not sqrt_mode
+                         or "_SANDWICH_MIN_SLOTS" in globs
+                         else {"fused" if globs else "tables"})
                 check(loops.loops == [kw.get("lm_loop", "fused")]
                       and set(factors.kinds) == kinds,
                       f"small {mode} solve on {dev}: LM loop "
@@ -994,6 +1021,31 @@ class TwinCheck:
             f"; {self.seconds:.3f} s of checks")
 
 
+def k1_times(a, c, W: int, sfx: str = "") -> dict:
+    """K1's device time on (a, c, W) beside its bound, its plain twin's
+    and torch.bmm's (the batched product without the diagonal-block
+    sum), keys suffixed with sfx."""
+    import torch
+
+    from rootba_tpu_torch.ops import fold
+
+    M, K9 = a.shape
+    R = M // W
+    a3 = a.view(R, W * K9 // 9, 9)
+    b3 = c.view(R, W * K9 // 9, 9)
+    # the operations bound takes the f32 peak in both precisions; bytes
+    # bound K1 either way (2.25 flops per f32 byte)
+    bnd = bound((2 * M * K9 + R * 81) * a.element_size(),
+                2 * M * (K9 // 9) * 81)
+    return {**both(f"ms{sfx}", lambda: fold.outer81_fold(a, c, W), 50,
+                   expect=KERNEL_NAMES["outer81_fold"]),
+            **both(f"plain_ms{sfx}", lambda: fold.fold_plain(a, c, W), 50),
+            f"bound_ms{sfx}": bnd["bound_ms"],
+            f"bound_by{sfx}": bnd["bound_by"],
+            **both(f"library_ms{sfx}",
+                   lambda: torch.bmm(a3.transpose(1, 2), b3), 50)}
+
+
 def k1_row(rec: "Recorder", errs: dict) -> dict:
     """K1 at its largest main-path call, in f32 (the working precision
     of the traced paths) and, as *_f64 keys, in f64 (the default CLI's
@@ -1004,7 +1056,6 @@ def k1_row(rec: "Recorder", errs: dict) -> dict:
 
     _, (s1, s2, W), _ = rec.largest["outer81_fold"]
     M, K9 = s1.shape
-    R = M // W
     row = dict(name="outer81_fold", route="cuda",
                source="rootba_tpu_torch/csrc/fold.cu",
                replaces="rootba_tpu/ops/pallas_fold.py:191",
@@ -1013,23 +1064,23 @@ def k1_row(rec: "Recorder", errs: dict) -> dict:
         a, c = s1.to(dt), s2.to(dt)
         err = k1_held(a, c, W, fold.outer81_fold(a, c, W),
                       f"{dt} at main-path inputs")
-        a3 = a.view(R, W * K9 // 9, 9)
-        b3 = c.view(R, W * K9 // 9, 9)
-        # the operations bound takes the f32 peak in both precisions;
-        # bytes bound K1 either way (2.25 flops per f32 byte)
-        bnd = bound((2 * M * K9 + R * 81) * a.element_size(),
-                    2 * M * (K9 // 9) * 81)
-        row.update({
-            f"max_abs_err{sfx}": (max(err, errs["outer81_fold"])
-                                  if not sfx else err),
-            **both(f"ms{sfx}", lambda: fold.outer81_fold(a, c, W), 50,
-                   expect=KERNEL_NAMES["outer81_fold"]),
-            **both(f"plain_ms{sfx}", lambda: fold.fold_plain(a, c, W), 50),
-            f"bound_ms{sfx}": bnd["bound_ms"],
-            f"bound_by{sfx}": bnd["bound_by"],
-            **both(f"library_ms{sfx}",
-                   lambda: torch.bmm(a3.transpose(1, 2), b3), 50)})
+        row.update({f"max_abs_err{sfx}": (max(err, errs["outer81_fold"])
+                                          if not sfx else err),
+                    **k1_times(a, c, W, sfx)})
     return row
+
+
+def k1_w64(rec: "Recorder") -> dict:
+    """K1 at the largest call of the strips route's checked final-3068
+    attempt (a full chunk of slot rows at run width 64)."""
+    from rootba_tpu_torch.ops import fold
+
+    _, (a, c, W), _ = rec.largest["outer81_fold"]
+    check(W == 64, f"the strips route's largest K1 call has W = {W}")
+    err = k1_held(a, c, W, fold.outer81_fold(a, c, W), "at W = 64")
+    return dict(shape=f"M={a.shape[0]} K={a.shape[1] // 9} W={W} "
+                      f"{str(a.dtype)[6:]}", max_abs_err=err,
+                **k1_times(a, c, W))
 
 
 def k2_row(rec: "Recorder", errs: dict) -> dict:
@@ -1449,12 +1500,13 @@ def bsr_operator_rows(system: dict, smi: str) -> list:
 class SharedSetup:
     """One load, one `bucketize` and one build of each host index for the
     in-process solves of one twin: while active, bundle_adjust's
-    bucketize returns `bp`, and the stream and BSR index builders of
+    bucketize returns `bp`, and the pair, camera and BSR index builders of
     bal.bucketing return their first result for the same buckets and
     arguments (the device uploads still run per linearizer). The twin is
     loaded as the CLI loads it (bench.py's preprocessing)."""
 
-    BUILDERS = ("build_pair_stream", "build_cam_stream", "build_bsr_matvec")
+    BUILDERS = ("build_pair_stream", "build_cam_stream", "build_bsr_matvec",
+                "build_pair_strips", "build_cam_strips", "build_pair_csr")
 
     def __init__(self, path: Path):
         from rootba_tpu_torch.bal.bucketing import bucketize
@@ -1504,7 +1556,9 @@ class SharedSetup:
 
     def solver(self, **kw):
         """The CLI's solver options of the twin, with kw (enum options by
-        name) on top; verbosity 1, no function tolerance."""
+        name) on top; verbosity 1, no function tolerance, and float32
+        unless kw has use_double (as run_cli; the CLI's own default is
+        float64)."""
         import copy
 
         from rootba_tpu_torch.config.options import (
@@ -1514,6 +1568,7 @@ class SharedSetup:
 
         opts = copy.deepcopy(self.options.solver)
         opts.verbosity_level, opts.function_tolerance = 1, 0.0
+        opts.use_double = False
         enums = {"solver_type": SolverType,
                  "preconditioner_type": PreconditionerType}
         for k, v in kw.items():
@@ -1795,6 +1850,235 @@ def sc_poba_phase(lady: Path, traf: Path, final: Path,
         checked["sc_float32"]["outer81_fold"]["max_abs_err"])
     torch.cuda.empty_cache()
     return out, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the strips and obs pair gathers and the W-free sandwich
+
+STRIPS = ("--pair-gather", "strips")
+OBS = ("--pair-gather", "obs")
+# the strips phase's wall budget (PERF.md section 2), and the least of it
+# that must be left for final-3068's strip_min_group=0 solve (its host
+# index build, 327,586 pair groups, its upload and one LM iteration:
+# 37.3 s of wall on an H100 machine) to run
+STRIPS_PHASE_S = 180.0
+STRIPS_ZERO_NEEDS_S = 60.0
+
+
+def final_state(problem) -> dict:
+    """Copies of a solved problem's cameras and landmarks (bundle_adjust
+    writes them in place)."""
+    import numpy as np
+
+    return {k: np.array(getattr(problem, k))
+            for k in ("cam_q", "cam_t", "cam_intr", "lm_p")}
+
+
+def held_states(what: str, got: dict, ref: dict, tol: float) -> float:
+    """Each array of `got` within tol of its `ref` array's largest
+    magnitude; returns the largest such relative difference."""
+    import numpy as np
+
+    rel = max(float(np.abs(got[k] - ref[k]).max())
+              / max(float(np.abs(ref[k]).max()), 1e-300) for k in ref)
+    check(rel < tol, f"{what}: final states differ by rel {rel} (tol "
+                     f"{tol:g})")
+    return rel
+
+
+def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
+                 errs: dict) -> tuple:
+    """Phase 15: the "strips" and "obs" pair gathers and the W-free
+    sandwich. final-3068 (BSR, packed table, one load and bucketize): the
+    stream route in process (3 f32 and 2 f64 LM iterations), strips (auto
+    min_group: 16384 there) and obs through the CLI (3 f32) and in process
+    (2 f64); each f64 run held to the stream's at rel 1e-8 (costs, flags,
+    CG counts, final state), each f32 run within 1e-4 of the stream's f32
+    costs and 2e-3 of its f64 costs; every K1/K2 call of one strips f32
+    attempt held against its twin. trafalgar-257 (dense): strip_min_group
+    0 (per-bucket tables) with W tables and with the sandwich forced, f32
+    and f64, the sandwich held to the W tables at f64 rel 1e-8 and every
+    K1 call of one sandwich f64 attempt against its twin; SC with strips
+    and obs (f32, 5) and PoBA with strips (f64, 2); two f32 strips solves
+    bit-equal. final-3068 with strip_min_group=0, one f32 iteration, when
+    STRIPS_ZERO_NEEDS_S of the budget is left. Returns ({path: readout},
+    {run: TwinCheck stats}, the recorder of the checked strips attempt)."""
+    import torch
+
+    from rootba_tpu_torch.ops import kernels
+    from rootba_tpu_torch.solver import sqrt_flat
+
+    t0 = time.monotonic()
+    SCT, PBT = "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"
+    sqrt_k = ("outer81_fold", "w_build")
+    out, checked = {}, {}
+
+    def launched(tag, kern):
+        n = dict(kernels.LAUNCHES)
+        for k in n:
+            check((n[k] > 0) == (k in kern),
+                  f"{tag}: kernel {k} launched {n[k]} times {n}")
+        return n
+
+    # final-3068: each route's f32 and f64 runs
+    logs32, logs64, states64 = {}, {}, {}
+    for name, flags in (("stream", None), ("strips", STRIPS), ("obs", OBS)):
+        kw = {} if flags is None else dict(pair_gather=flags[1])
+        tag = f"{name}_final3068"
+        built = final_setup.builds_s
+        kernels.reset_launches()
+        with RouteSpy() as spy:
+            if flags is None:
+                logs32[name], r = timed_path(
+                    f"phase 15 {tag}", lambda: final_setup.solve(
+                        max_num_iterations=3))
+            else:
+                # through the CLI, on the shared load's buckets and index
+                # builds (the CLI still reads the text)
+                with final_setup:
+                    logs32[name], r = timed_path(
+                        f"phase 15 {tag}", lambda: run_cli(
+                            final, 3, f"{tag}_f32", flags))
+        r["launches"] = launched(tag, sqrt_k)
+        r["host_index_builds_s"] = final_setup.builds_s - built
+        check(spy.regimes and set(spy.regimes) == {False},
+              f"{tag}: linear solves by regime {spy.regimes}: not BSR "
+              f"packed")
+        out[tag] = r
+        kernels.reset_launches()
+        logs64[name], out[f"{tag}_f64"] = timed_path(
+            f"phase 15 {tag}_f64", lambda: final_setup.solve(
+                use_double=True, max_num_iterations=2, **kw))
+        launched(f"{tag}_f64", sqrt_k)
+        states64[name] = final_state(final_setup.problem)
+        print(f"[phase 15] {tag}: host index builds "
+              f"{r['host_index_builds_s']:.3f} s (first use)", flush=True)
+    for name in ("strips", "obs"):
+        tag = f"{name}_final3068"
+        rel = held_logs(f"{tag} f64 vs stream", logs64[name],
+                        logs64["stream"], 1e-8)
+        srel = held_states(f"{tag} f64 vs stream", states64[name],
+                           states64["stream"], 1e-8)
+        rel32 = held_logs(f"{tag} f32 vs stream f32", logs32[name],
+                          logs32["stream"], 1e-4, cg=False)
+        rel64 = held_logs(f"{tag} f32 vs stream f64", logs32[name],
+                          logs64["stream"], 2e-3, cg=False)
+        out[tag].update(rel_to_stream_f32=rel32, rel_to_stream_f64=rel64)
+        out[f"{tag}_f64"].update(rel_to_stream=rel, state_rel=srel)
+        print(f"[phase 15] final-3068 {name} vs stream: f64 flags and CG "
+              f"counts equal, costs within rel {rel:.2e}, final state "
+              f"{srel:.2e} (tol 1e-8); f32 costs within {rel32:.2e} of "
+              f"the stream's f32 (tol 1e-4) and {rel64:.2e} of its f64 "
+              f"(tol 2e-3)", flush=True)
+    # every K1/K2 call of one strips f32 attempt against its twin; the
+    # largest K1 call's inputs kept for the W = 64 timing
+    with TwinCheck() as tw, Recorder() as rec:
+        final_setup.solve(pair_gather="strips", max_num_iterations=1)
+    print(f"[phase 15] final-3068 strips f32, 1 untimed LM iteration with "
+          f"every kernel call held against its twin: "
+          f"{tw.report('final3068 strips f32')}", flush=True)
+    checked["strips_final3068_f32"] = tw.stats
+    rec.k3_calls.clear()
+
+    # trafalgar-257, dense: per-bucket strip tables, W tables or sandwich
+    traf_setup = SharedSetup(traf)
+    zero = dict(pair_gather="strips", strip_min_group=0)
+    tl = {}
+    for use_double in (False, True):
+        p = "f64" if use_double else "f32"
+        for route, forced in (("strips0", False), ("sandwich", True)):
+            tag = f"{route}_trafalgar_{p}"
+            kernels.reset_launches()
+            with patched(sqrt_flat, **(dict(_SANDWICH_MIN_SLOTS=1)
+                                       if forced else {})):
+                tl[route, p], out[tag] = timed_path(
+                    f"phase 15 {tag}", lambda: traf_setup.solve(
+                        use_double=use_double, max_num_iterations=3,
+                        **zero))
+            # the sandwich builds no W tables: K1 only
+            out[tag]["launches"] = launched(
+                tag, ("outer81_fold",) if forced else sqrt_k)
+    rel = held_logs("trafalgar sandwich f64 vs W tables",
+                    tl["sandwich", "f64"], tl["strips0", "f64"], 1e-8)
+    rel32 = held_logs("trafalgar sandwich f32 vs W tables",
+                      tl["sandwich", "f32"], tl["strips0", "f32"], 1e-4,
+                      cg=False)
+    rel64 = held_logs("trafalgar strips0 f32 vs f64", tl["strips0", "f32"],
+                      tl["strips0", "f64"], 2e-3, cg=False)
+    out["sandwich_trafalgar_f64"]["rel_to_w_tables"] = rel
+    print(f"[phase 15] trafalgar-257 sandwich vs W tables: f64 flags and "
+          f"CG counts equal, costs within rel {rel:.2e} (tol 1e-8); f32 "
+          f"{rel32:.2e} (tol 1e-4); strips0 f32 vs f64 {rel64:.2e} (tol "
+          f"2e-3)", flush=True)
+    with patched(sqrt_flat, _SANDWICH_MIN_SLOTS=1), TwinCheck() as tw:
+        traf_setup.solve(use_double=True, max_num_iterations=1, **zero)
+    print(f"[phase 15] trafalgar-257 sandwich f64, 1 untimed LM iteration "
+          f"with every K1 call held against its twin: "
+          f"{tw.report('trafalgar sandwich f64', expect=('outer81_fold',))}",
+          flush=True)
+    checked["sandwich_trafalgar_f64"] = tw.stats
+    sc = {}
+    for tag, kw, iters in (
+            ("sc_strips_trafalgar", dict(solver_type=SCT,
+                                         pair_gather="strips"), 5),
+            ("sc_obs_trafalgar", dict(solver_type=SCT, pair_gather="obs"),
+             5),
+            ("poba_strips_trafalgar_f64", dict(solver_type=PBT,
+                                               pair_gather="strips",
+                                               use_double=True), 2)):
+        kernels.reset_launches()
+        sc[tag], out[tag] = timed_path(
+            f"phase 15 {tag}", lambda: traf_setup.solve(
+                max_num_iterations=iters, **kw))
+        out[tag]["launches"] = launched(tag, ("outer81_fold",))
+    rel = held_logs("trafalgar SC obs vs strips f32", sc["sc_obs_trafalgar"],
+                    sc["sc_strips_trafalgar"], 1e-4, cg=False)
+    print(f"[phase 15] trafalgar-257 SC f32: obs vs strips costs within rel "
+          f"{rel:.2e} (tol 1e-4)", flush=True)
+    # two f32 strips solves: the same CG counts, costs and final state,
+    # bit for bit (no scatter-add on this route)
+    runs = []
+    for _ in range(2):
+        lg = traf_setup.solve(pair_gather="strips", max_num_iterations=3)
+        runs.append((lg, final_state(traf_setup.problem)))
+    (a, sa), (b, sb) = runs
+    same = all((sa[k] == sb[k]).all() for k in sa)
+    check(a["cost"] == b["cost"] and same and a["linear_solver_iterations"]
+          == b["linear_solver_iterations"],
+          f"trafalgar strips f32 solved twice: costs {a['cost']} / "
+          f"{b['cost']}, CG {a['linear_solver_iterations']} / "
+          f"{b['linear_solver_iterations']}, states equal {same}")
+    print(f"[phase 15] trafalgar-257 strips f32 solved twice: the same CG "
+          f"counts {a['linear_solver_iterations'][1:]}, bit-equal costs "
+          f"{a['cost']} and final states", flush=True)
+    del traf_setup
+    torch.cuda.empty_cache()
+
+    # final-3068 with strip_min_group=0 (every pattern a strip group)
+    left = STRIPS_PHASE_S - (time.monotonic() - t0)
+    if left >= STRIPS_ZERO_NEEDS_S:
+        built = final_setup.builds_s
+        kernels.reset_launches()
+        _, r = timed_path("phase 15 strips0_final3068", lambda:
+                          final_setup.solve(max_num_iterations=1, **zero))
+        r["launches"] = launched("strips0_final3068", sqrt_k)
+        r["host_index_builds_s"] = final_setup.builds_s - built
+        out["strips0_final3068"] = r
+        print(f"[phase 15] final-3068 strip_min_group=0: host index builds "
+              f"{r['host_index_builds_s']:.3f} s", flush=True)
+    else:
+        out["strips0_final3068"] = dict(
+            skipped=f"{left:.1f} s of the phase's {STRIPS_PHASE_S:g} s "
+                    f"left, {STRIPS_ZERO_NEEDS_S:g} s needed")
+        print(f"[phase 15] final-3068 strip_min_group=0 not run: "
+              f"{out['strips0_final3068']['skipped']}", flush=True)
+    errs["outer81_fold"] = max(
+        errs["outer81_fold"],
+        checked["strips_final3068_f32"]["outer81_fold"]["max_abs_err"])
+    errs["w_build"] = max(
+        errs["w_build"],
+        checked["strips_final3068_f32"]["w_build"]["max_abs_err"])
+    return out, checked, rec
 
 
 def final4585_phase() -> dict:
@@ -2214,8 +2498,8 @@ def formats_phase(final: Path, lady: Path) -> dict:
 
 
 PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
-          "final3068", "determinism", "sc", "checkpoint", "baselines",
-          "formats", "final4585", "traced")
+          "final3068", "determinism", "sc", "strips", "checkpoint",
+          "baselines", "formats", "final4585", "traced")
 
 
 def main(argv=None) -> int:
@@ -2284,12 +2568,12 @@ def partial_run(only, want, lap, dev) -> int:
     # the twins each phase reads
     need = {"ladybug": ("ladybug", "sc", "checkpoint", "baselines",
                         "formats"),
-            "trafalgar": ("trafalgar", "sc", "determinism"),
-            "final3068": ("final3068", "sc", "determinism", "checkpoint",
-                          "formats")}
+            "trafalgar": ("trafalgar", "sc", "determinism", "strips"),
+            "final3068": ("final3068", "sc", "determinism", "strips",
+                          "checkpoint", "formats")}
     lady, traf, final = (write_twin(n) if any(map(want, ps)) else None
                          for n, ps in need.items())
-    if want("determinism") or want("sc"):
+    if want("determinism") or want("sc") or want("strips"):
         final_setup = SharedSetup(final)
         if want("determinism"):
             determinism_phase(final_setup, traf)
@@ -2297,6 +2581,9 @@ def partial_run(only, want, lap, dev) -> int:
         if want("sc"):
             sc_poba_phase(lady, traf, final, final_setup, errs)
             lap("phases 10-11")
+        if want("strips"):
+            strips_phase(traf, final, final_setup, errs)
+            lap("phase 15")
     if want("checkpoint"):
         checkpoint_phase(final, SharedSetup(lady))
         lap("phase 12")
@@ -2541,6 +2828,11 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     sc_out, sc_checked = sc_poba_phase(lady, traf, final, final_setup, errs)
     lap("phases 10-11")
 
+    # phase 15: the strips and obs pair gathers, the W-free sandwich
+    strips_out, strips_checked, strips_rec = strips_phase(
+        traf, final, final_setup, errs)
+    lap("phase 15")
+
     # phases 12-14: checkpoint/resume, the CERES baselines, the formats
     host_out = {"checkpoint": checkpoint_phase(final, SharedSetup(lady))}
     lap("phase 12")
@@ -2580,7 +2872,19 @@ def full_run(smi, lap, walls, dev, t0) -> int:
              lambda: run_cli(lady, 5, "poba_ladybug_counted", solver=PBT)),
             ("poba_final3068_f64", final, 2, ("outer81_fold",), (),
              lambda: final_setup.solve(solver_type=PBT, use_double=True,
-                                       max_num_iterations=2))):
+                                       max_num_iterations=2)),
+            # the strips and obs pair gathers: K1 and K2 (and the padded
+            # grid's K3 at ladybug); final-3068 on phase 15's index builds
+            ("strips_ladybug", lady, 3, sqrt_k + ("pcg_dense_cluster",),
+             STRIPS, None),
+            ("obs_ladybug", lady, 3, sqrt_k + ("pcg_dense_cluster",), OBS,
+             None),
+            ("strips_final3068", final, 1, sqrt_k, (),
+             lambda: final_setup.solve(pair_gather="strips",
+                                       max_num_iterations=1)),
+            ("obs_final3068", final, 1, sqrt_k, (),
+             lambda: final_setup.solve(pair_gather="obs",
+                                       max_num_iterations=1))):
         if path == "final3068":
             # keeps the last stage2's system for the operator timing
             with final_spy:
@@ -2646,6 +2950,19 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     rows[0]["max_abs_err_f64"] = max(
         rows[0]["max_abs_err_f64"],
         sc_checked["poba_float64"]["outer81_fold"]["max_abs_err"])
+    # the strips route (phase 15): every K1/K2 call of its checked
+    # attempts, and K1 timed at its largest call, run width 64
+    rows[0]["strips_checked"] = {
+        k: st["outer81_fold"] for k, st in strips_checked.items()}
+    rows[1]["strips_checked"] = {
+        "strips_final3068_f32":
+            strips_checked["strips_final3068_f32"]["w_build"]}
+    rows[0]["max_abs_err_f64"] = max(
+        rows[0]["max_abs_err_f64"],
+        strips_checked["sandwich_trafalgar_f64"]["outer81_fold"][
+            "max_abs_err"])
+    rows[0]["w64"] = k1_w64(strips_rec)
+    strips_rec = None
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,
@@ -2686,6 +3003,16 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             r["k1_device_ms_per_attempt"] = ms["outer81_fold"] / attempts[p]
         r["card"] = smi
     lap("sc line")
+    # the strips and obs routes at final-3068: K1/K2 launches and device
+    # time per LM attempt from their counted solves (phase 6)
+    for route in ("strips", "obs"):
+        p = f"{route}_final3068"
+        n, ms = paths[p]
+        strips_out[p]["launches_per_attempt"] = {
+            k: v / attempts[p] for k, v in n.items() if v}
+        strips_out[p]["device_ms_per_attempt"] = {
+            k: ms[k] / attempts[p] for k, v in n.items() if v}
+    print(json.dumps({"strips": strips_out, "card": smi}))
     print(json.dumps({"checkpoint_baselines_formats": host_out,
                       "card": smi}))
     print(json.dumps({"sc": sc_out, "phase_walls_s": walls}))

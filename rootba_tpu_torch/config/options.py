@@ -256,10 +256,34 @@ class SolverOptions:
                    "num_cameras <= this; above it sqrt_rcs_mode='auto' "
                    "picks the block-sparse mode ('bsr')")
     pair_gather: str = opt(
-        "stream", help="gather of the RCS pair products: 'stream' "
-                       "(per-bucket sub-streams of camera-sorted "
-                       "landmarks, folded runs); 'strips' and 'obs' are "
-                       "not ported and raise")
+        "stream", help="explicit-RCS pair-product gather formulation: "
+                       "'stream' (default) tiles every pair slot into "
+                       "per-bucket sub-streams of camera-sorted "
+                       "landmarks, gathers from bounded sub-tables and "
+                       "folds runs -- cost O(slots) regardless of "
+                       "covisibility regularity; 'strips' groups slots "
+                       "by within-landmark pattern, which degrades on "
+                       "irregular/clustered structure (a wide bucket has "
+                       "n(n-1)/2 patterns) and is kept for comparison; "
+                       "'obs' gathers the two per-observation rows from "
+                       "the flat [O,27] strip (simpler, slower at "
+                       ">1M-observation scale)")
+    strip_min_group: int = opt(
+        -1, help="strips pair/camera gather: within-landmark patterns "
+                 "with fewer slots than this route through a "
+                 "per-observation leftover stream instead of their own "
+                 "strip group. 0 = no leftover stream; every pattern is "
+                 "a strip group and all strip tables stay per bucket "
+                 "(no flat [O, F] per-observation tables), at the cost "
+                 "of many small groups on small and mid-size problems. "
+                 "-1 (default) = auto: leftover stream (16384) up to "
+                 "strip_auto_obs_threshold observations, per-bucket "
+                 "strips (0) above")
+    strip_auto_obs_threshold: int = opt(
+        4_000_000, help="observation count above which "
+                        "strip_min_group=-1 (auto) switches from the "
+                        "leftover-stream routing to all-per-bucket strip "
+                        "tables")
     pallas_cg: str = opt(
         "auto", help="run the whole dense-RCS PCG loop as one CUDA "
                      "kernel (K3, csrc/cg_dense.cu): 'auto' in float32 "
@@ -311,6 +335,15 @@ class SolverOptions:
                 raise ValueError(
                     f"solver option '{name}={v!r}' is not one of "
                     f"{values}")
+
+    def effective_strip_min_group(self, num_observations: int) -> int:
+        """Resolve strip_min_group=-1 (auto) by problem size: the
+        leftover-stream routing (16384) up to strip_auto_obs_threshold
+        observations, the all-strips routing (0) above."""
+        if self.strip_min_group >= 0:
+            return self.strip_min_group
+        return (16384 if num_observations <= self.strip_auto_obs_threshold
+                else 0)
 
     def use_projection_validity_check(self) -> bool:
         return self.optimized_cost != OptimizedCost.ERROR

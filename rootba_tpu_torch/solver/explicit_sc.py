@@ -12,9 +12,10 @@ sc/linearization_power_sc.hpp) on one device:
 * The reduced camera system H = Jp'Jp - Jp'Jl Hll^-1 Jl'Jp + lam I is
   assembled as the dense z-space matrix up to dense_rcs_max_cameras
   (sc_assemble_dense), as the BSR half/packed table above it
-  (sc_assemble_bsr), both through the stream reducers whose block
-  products are kernel K1 (pair block (c_i, c_j) = -(Hll^-1 T)_i' T_j
-  with T = Jl'Jp; diagonal Jp'Jp - (Hll^-1 T)' T per camera), or, with
+  (sc_assemble_bsr), both through the reducers of the pair gather that
+  `pair_gather` names (stream, strips or obs), whose block products are
+  kernel K1 (pair block (c_i, c_j) = -(Hll^-1 T)_i' T_j with T = Jl'Jp;
+  diagonal Jp'Jp - (Hll^-1 T)' T per camera), or, with
   dense_rcs_max_cameras=0, by the segment-sum scatter over unique
   camera pairs (sc_assemble).
 * SC solves with pcg under the SCHUR_JACOBI, DIAGONAL or
@@ -22,15 +23,13 @@ sc/linearization_power_sc.hpp) on one device:
   x = sum_i (Hpp^-1 E0)^i Hpp^-1 (-b) with the zeta test, E0 assembled
   densely, as a BSR table, or swept implicitly (e0_matvec).
 
-Not ported (they raise NotImplementedError naming their ROADMAP item):
-the strips and obs pair gathers and the per-bucket "parts" strip
-factors (queue 1, item 5). The JAX package's mesh branches have no
-counterpart: the port's config has no mesh (queue 1, item 8).
+The JAX package's mesh branches have no counterpart: the port's config
+has no mesh (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -43,17 +42,17 @@ from rootba_tpu_torch.solver.linearization import (
     POSE_SIZE,
     BsrMatvecIndex,
     CamState,
-    CamStreamIndex,
-    PairStreamIndex,
     assemble_rcs_bsr,
     assemble_rcs_dense,
     bsr_build_table,
+    build_pair_index,
     bsr_symmetric_fits,
     bsr_table_matvec,
-    cam_gram_stream,
-    cam_reduce_stream,
+    cam_parts_mode,
+    cam_reduce_strips,
     compute_error_buckets,
     csr_cam_reduce,
+    pair_parts_mode,
     segment_sum,
 )
 
@@ -158,12 +157,13 @@ class SCStage2(NamedTuple):
 
 
 def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
-                   cam_strips: Optional[CamStreamIndex] = None):
+                   cam_strips=None):
     """Per-bucket damped Hll^-1 and the RCS right-hand side
     b = Jp'(r - Jl Hll^-1 Jl' r) (landmark_block stage(),
     sc/landmark_block.hpp:342-364), reduced per camera through the
-    camera stream, else the camera CSR, else a segment sum. Returns
-    (b, Hll_invs)."""
+    camera stream or strips, else the camera CSR, else a segment sum.
+    Returns (b, Hll_invs)."""
+    parts = cam_parts_mode(cam_strips)
     b = lins[0].Jp.new_zeros((num_cameras, P9))
     b_parts = []
     Hll_invs = []
@@ -177,15 +177,17 @@ def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
         hbl = torch.einsum("lcd,ld->lc", Hll_inv, bl)
         rr = lin.r - torch.einsum("lnrc,lc->lnr", lin.Jl, hbl)
         yb = torch.einsum("lnrj,lnr->lnj", lin.Jp, rr)
-        if cam_strips is not None:
+        if parts:
             b_parts.append(yb.reshape(L, n * P9))
-        elif cam_csr is not None:
+        elif cam_strips is not None or cam_csr is not None:
             b_parts.append(yb.reshape(-1, P9))
         else:
             b = b + segment_sum(yb.reshape(-1, P9), bucket.cam_idx.reshape(-1),
                                 num_cameras)
-    if cam_strips is not None:
-        b = cam_reduce_stream(tuple(b_parts), buckets, cam_strips)
+    if parts:
+        b = cam_reduce_strips(tuple(b_parts), buckets, cam_strips)
+    elif cam_strips is not None:
+        b = cam_reduce_strips(torch.cat(b_parts, dim=0), buckets, cam_strips)
     elif cam_csr is not None:
         b = csr_cam_reduce(b_parts, cam_csr, num_cameras)
     return b, tuple(Hll_invs)
@@ -221,10 +223,14 @@ def sc_assemble(lins, buckets, pairs: PairStructure, lam, num_cameras,
                     Hll_inv=tuple(Hll_invs), lam=lam)
 
 
-def _sc_strip_factors(lins, Hll_invs, with_jp: bool = True):
-    """(HT, T, Jp) factors of the SC/E0 assemblies as per-bucket tables
-    for the stream reducers: T = Jl'Jp and HT = Hll^-1 T as
-    [L, n*27] (col c*9+j), Jp as [L, n*18] (col r*9+j)."""
+def _sc_strip_factors(lins, Hll_invs, pair_idx, cam_strips,
+                      with_jp: bool = True):
+    """(HT, T, Jp) factors of the SC/E0 assemblies: T = Jl'Jp and
+    HT = Hll^-1 T, per-bucket [L, n*27] tables (col c*9+j) and Jp
+    [L, n*18] (col r*9+j) where both reducers take per-bucket tables
+    (stream, or leftover-free strips), else flat [O, 3, 9] / [O, 2, 9]
+    arrays (obs, strips with a leftover stream)."""
+    parts = cam_parts_mode(cam_strips) and pair_parts_mode(pair_idx)
     T_parts, HT_parts, Jp_parts = [], [], []
     for lin, Hll_inv in zip(lins, Hll_invs):
         L, n = lin.Jp.shape[0], lin.Jp.shape[1]
@@ -235,29 +241,35 @@ def _sc_strip_factors(lins, Hll_invs, with_jp: bool = True):
         T_parts.append(T.reshape(L, n * 3 * P9))
         HT_parts.append(HT.reshape(L, n * 3 * P9))
         Jp_parts.append(lin.Jp.reshape(L, n * 2 * P9))
-    return (tuple(HT_parts), tuple(T_parts),
-            tuple(Jp_parts) if with_jp else None)
+    if parts:
+        return (tuple(HT_parts), tuple(T_parts),
+                tuple(Jp_parts) if with_jp else None)
+
+    def flat(ts, K):
+        return torch.cat([t.reshape(-1, K, P9) for t in ts], dim=0)
+
+    return (flat(HT_parts, 3), flat(T_parts, 3),
+            flat(Jp_parts, 2) if with_jp else None)
 
 
-def sc_assemble_dense(lins, buckets, pairs: PairStreamIndex,
-                      cam_strips: CamStreamIndex, lam, num_cameras,
+def sc_assemble_dense(lins, buckets, pairs, cam_strips, lam, num_cameras,
                       cam_csr=None):
-    """Dense-RCS SC assembly through the stream reducers: pair block
-    (c_i, c_j) = -(Hll^-1 T)_i' T_j with T = Jl'Jp, diagonal
+    """Dense-RCS SC assembly through the pair and camera reducers of
+    `pairs` / `cam_strips` (the camera CSR where cam_strips is None):
+    pair block (c_i, c_j) = -(Hll^-1 T)_i' T_j with T = Jl'Jp, diagonal
     Jp_i'Jp_i - (Hll^-1 T)_i' T_i per camera (K1 folds both). Returns
     (H_dense, diag_blocks, b, Hll_invs)."""
     b, Hll_invs = sc_rhs_and_hll(lins, buckets, lam, num_cameras,
                                  cam_csr=cam_csr, cam_strips=cam_strips)
-    HT, T, Jp = _sc_strip_factors(lins, Hll_invs)
-    diag81 = cam_gram_stream([(Jp, Jp, 1.0), (HT, T, -1.0)], buckets,
-                             cam_strips)
-    Hd, diag = assemble_rcs_dense(HT, T, pairs, lam, num_cameras, buckets,
-                                  None, diag81)
+    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips)
+    Hd, diag = assemble_rcs_dense(
+        HT, T, pairs, lam, num_cameras, buckets, None, None,
+        diag_terms=[(Jp, Jp, 1.0), (HT, T, -1.0)], csr=cam_csr,
+        cam_strips=cam_strips)
     return Hd, diag, b, Hll_invs
 
 
-def sc_assemble_bsr(lins, buckets, pairs: PairStreamIndex,
-                    cam_strips: CamStreamIndex, lam, num_cameras,
+def sc_assemble_bsr(lins, buckets, pairs, cam_strips, lam, num_cameras,
                     cam_csr=None, symmetric: bool = False):
     """Block-sparse SC assembly (the H of sc_assemble_dense without the
     densify). Returns (blocks, diag, b, Hll_invs) with blocks/diag as in
@@ -265,11 +277,11 @@ def sc_assemble_bsr(lins, buckets, pairs: PairStreamIndex,
     symmetric=True)."""
     b, Hll_invs = sc_rhs_and_hll(lins, buckets, lam, num_cameras,
                                  cam_csr=cam_csr, cam_strips=cam_strips)
-    HT, T, Jp = _sc_strip_factors(lins, Hll_invs)
-    diag81 = cam_gram_stream([(Jp, Jp, 1.0), (HT, T, -1.0)], buckets,
-                             cam_strips)
-    blocks, diag = assemble_rcs_bsr(HT, T, pairs, lam, num_cameras, buckets,
-                                    None, diag81, symmetric=symmetric)
+    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips)
+    blocks, diag = assemble_rcs_bsr(
+        HT, T, pairs, lam, num_cameras, buckets, None, None,
+        symmetric=symmetric, diag_terms=[(Jp, Jp, 1.0), (HT, T, -1.0)],
+        csr=cam_csr, cam_strips=cam_strips)
     return blocks, diag, b, Hll_invs
 
 
@@ -379,32 +391,34 @@ def sc_back_substitute(lins, buckets, Hll_invs, lm_ps, pose_inc,
     return tuple(new_lm_ps), l_hi + l_lo
 
 
-def e0_assemble_dense(lins, buckets, Hll_invs, pairs: PairStreamIndex,
-                      cam_strips: CamStreamIndex, num_cameras):
+def e0_assemble_dense(lins, buckets, Hll_invs, pairs, cam_strips,
+                      num_cameras, cam_csr=None):
     """E0 = Jp' Jl Hll^-1 Jl' Jp as a z-space dense matrix: the SC pair
-    products with the diagonal blocks (Hll^-1 T)' T, through the stream
-    reducers (K1). The reference never materializes E0; one assembly
-    per stage2 makes every power iteration a dense GEMV."""
-    HT, T, _ = _sc_strip_factors(lins, Hll_invs, with_jp=False)
+    products with the diagonal blocks (Hll^-1 T)' T, through the pair
+    and camera reducers (K1). The reference never materializes E0; one
+    assembly per stage2 makes every power iteration a dense GEMV."""
+    HT, T, _ = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips,
+                                 with_jp=False)
     zero_lam = lins[0].Jp.new_zeros(())
-    diag81 = cam_gram_stream([(HT, T, -1.0)], buckets, cam_strips)
     # the assembly gives diag(terms) - pairs + 0 I = -E0; negate
-    negE0, _ = assemble_rcs_dense(HT, T, pairs, zero_lam, num_cameras,
-                                  buckets, None, diag81)
+    negE0, _ = assemble_rcs_dense(
+        HT, T, pairs, zero_lam, num_cameras, buckets, None, None,
+        diag_terms=[(HT, T, -1.0)], csr=cam_csr, cam_strips=cam_strips)
     return negE0.neg_()
 
 
-def e0_assemble_bsr(lins, buckets, Hll_invs, pairs: PairStreamIndex,
-                    cam_strips: CamStreamIndex, num_cameras,
-                    symmetric: bool = False):
+def e0_assemble_bsr(lins, buckets, Hll_invs, pairs, cam_strips,
+                    num_cameras, symmetric: bool = False, cam_csr=None):
     """Block-sparse E0 (the matrix of e0_assemble_dense, no densify).
     Returns the NEGATED (blocks, diag) pair: apply as
     e0(v) = -bsr_table_matvec(...)(v)."""
-    HT, T, _ = _sc_strip_factors(lins, Hll_invs, with_jp=False)
+    HT, T, _ = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips,
+                                 with_jp=False)
     zero_lam = lins[0].Jp.new_zeros(())
-    diag81 = cam_gram_stream([(HT, T, -1.0)], buckets, cam_strips)
-    return assemble_rcs_bsr(HT, T, pairs, zero_lam, num_cameras, buckets,
-                            None, diag81, symmetric=symmetric)
+    return assemble_rcs_bsr(
+        HT, T, pairs, zero_lam, num_cameras, buckets, None, None,
+        symmetric=symmetric, diag_terms=[(HT, T, -1.0)], csr=cam_csr,
+        cam_strips=cam_strips)
 
 
 def _dense_e0_from_h(H_dense, jacobi, lam):
@@ -433,13 +447,6 @@ def _dense_e0_from_h(H_dense, jacobi, lam):
 from rootba_tpu_torch.solver.lm import LinearizerBase  # noqa: E402
 
 
-def _check_pair_gather(opts) -> None:
-    if opts.pair_gather != "stream":
-        raise NotImplementedError(
-            f"pair_gather={opts.pair_gather!r} is not ported yet "
-            f"(ROADMAP.md, queue 1: strips/obs gathers); use 'stream'")
-
-
 class SCLinearizer(LinearizerBase):
     """SCHUR_COMPLEMENT solver (reference solver/linearizor_sc.cpp)."""
 
@@ -457,25 +464,16 @@ class SCLinearizer(LinearizerBase):
         N = self.num_cameras
         self.dense_rcs = 0 < N <= opts.dense_rcs_max_cameras
         self.bsr_rcs = not self.dense_rcs and opts.dense_rcs_max_cameras > 0
-        self.pairs_stream = self.cam_strips = self.bsr = None
+        self.pair_index = self.cam_strips = self.bsr = None
         self.bsr_sym = False
         if not (self.dense_rcs or self.bsr_rcs):
             return
-        _check_pair_gather(opts)
-        from rootba_tpu_torch.bal.bucketing import (
-            build_bsr_matvec,
-            build_cam_stream,
-            build_pair_stream,
-        )
+        from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
 
-        host_buckets = self.bp.buckets
-        pairs_host = build_pair_stream(host_buckets, N,
-                                       dense_grid=self.dense_rcs)
-        self.pairs_stream = PairStreamIndex.from_host(pairs_host,
-                                                      host_buckets,
-                                                      self.device)
-        self.cam_strips = CamStreamIndex.from_host(
-            build_cam_stream(host_buckets, N), host_buckets, self.device)
+        self.pair_index, self.cam_strips, pairs_host = build_pair_index(
+            self.bp.buckets, N, opts.pair_gather, self.device,
+            min_group=opts.effective_strip_min_group(
+                self.bp.num_observations), dense_grid=self.dense_rcs)
         if self.bsr_rcs:
             self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
                 pairs_host.pair_row, pairs_host.pair_col, N), self.device)
@@ -518,13 +516,13 @@ class SCLinearizer(LinearizerBase):
         H_dense = None
         if self.dense_rcs:
             H_dense, diag, b, Hll_invs = sc_assemble_dense(
-                lins, self.buckets, self.pairs_stream, self.cam_strips, lam,
+                lins, self.buckets, self.pair_index, self.cam_strips, lam,
                 N, cam_csr=self.cam_csr)
             stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,
                               Hll_inv=Hll_invs, lam=lam)
         elif self.bsr_rcs:
             half, diag, b, Hll_invs = sc_assemble_bsr(
-                lins, self.buckets, self.pairs_stream, self.cam_strips, lam,
+                lins, self.buckets, self.pair_index, self.cam_strips, lam,
                 N, cam_csr=self.cam_csr, symmetric=True)
             H_dense = (bsr_build_table(half, self.bsr, self.bsr_sym), diag)
             stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,
@@ -634,11 +632,12 @@ class PowerSCLinearizer(SCLinearizer):
         E0 = None
         if self.dense_rcs:
             E0 = e0_assemble_dense(lins, self.buckets, Hll_invs,
-                                   self.pairs_stream, self.cam_strips, N)
+                                   self.pair_index, self.cam_strips, N,
+                                   cam_csr=self.cam_csr)
         elif self.bsr_rcs:
             neg_half, neg_diag = e0_assemble_bsr(
-                lins, self.buckets, Hll_invs, self.pairs_stream,
-                self.cam_strips, N, symmetric=True)
+                lins, self.buckets, Hll_invs, self.pair_index,
+                self.cam_strips, N, symmetric=True, cam_csr=self.cam_csr)
             E0 = (bsr_build_table(neg_half, self.bsr, self.bsr_sym),
                   neg_diag)
         stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,

@@ -456,7 +456,9 @@ def test_auto_picks_bsr_above_dense_rcs_max_cameras(synthetic_problem):
     lin = t_create(bp, TOptions(dense_rcs_max_cameras=1), torch.float32,
                    CPU)
     assert lin.bsr_rcs and not lin.bsr_sym and not lin.use_cg_kernel
+    # the strips and obs pair gathers run BSR mode too
+    # (tests/test_torch_strips.py holds them to the JAX package)
     for kw in (dict(pair_gather="strips"), dict(pair_gather="obs")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_create(bp, TOptions(sqrt_rcs_mode="bsr", **kw),
-                     torch.float64, CPU)
+        lin = t_create(bp, TOptions(sqrt_rcs_mode="bsr", **kw),
+                       torch.float64, CPU)
+        assert lin.bsr_rcs and lin.bsr is not None

@@ -31,7 +31,8 @@ def _write_problem(path):
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
     """Importing the port and solving on the CPU with each of its solvers
-    leaves jax and the JAX package out of sys.modules."""
+    (and the strips and obs pair gathers) leaves jax and the JAX package
+    out of sys.modules."""
     prog = f"""
 import sys
 sys.path.insert(0, {str(REPO)!r})
@@ -57,6 +58,15 @@ for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT",
             lm_loop="host", checkpoint_path=f"ck_{{solver}}_{{method}}.npz",
             checkpoint_interval=1), device="cpu")
         assert s.final_cost.all.error < s.initial_cost.all.error, solver
+for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT"):
+    for gather in ("strips", "obs"):
+        p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
+        p.filter_obs(0.1)
+        s = bundle_adjust(p, SolverOptions(
+            use_double=False, verbosity_level=0, max_num_iterations=3,
+            solver_type=SolverType(solver), pair_gather=gather,
+            strip_min_group=0), device="cpu")
+        assert s.final_cost.all.error < s.initial_cost.all.error, gather
 rootba_io.save_rootba(p, "p.cereal")
 rootba_io.load_rootba("p.cereal")
 p.save_bal("p.txt")
@@ -138,10 +148,10 @@ def test_cli_help_and_dump_config(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--num-devices", "2"],
-                                  ["--strip-auto-obs-threshold", "1"],
+                                  ["--timing-calibration-interval", "1"],
                                   ["--host-fused-attempt", "false"],
                                   ["--defer-stage-sync", "false"],
-                                  ["--strip-min-group", "0"]])
+                                  ["--num-devices", "1"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
     """The port's config has no options for paths it does not have, so
     such a flag is an argparse error instead of being ignored."""
@@ -156,7 +166,8 @@ def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
 def test_config_file_keys_of_the_reference(tmp_path, capsys):
     """A config file with the JAX package's keys debug, num_threads,
     use_householder_marginalization, staged_execution and reduction_alg,
-    and the checkpoint and CERES-baseline keys, loads (no unused-key
+    the checkpoint and CERES-baseline keys and the strips gather's
+    strip_min_group and strip_auto_obs_threshold, loads (no unused-key
     exit), and --dump-config prints them; their flags parse."""
     from rootba_tpu_torch.cli.bal import run_app
 
@@ -167,7 +178,8 @@ def test_config_file_keys_of_the_reference(tmp_path, capsys):
         'checkpoint_path = "ck.npz"\ncheckpoint_interval = 3\n'
         'baseline_method = "lm"\ngradient_tolerance = 1e-10\n'
         "parameter_tolerance = 1e-09\nmin_lm_diagonal = 1e-05\n"
-        "max_lm_diagonal = 1e+20\n")
+        "max_lm_diagonal = 1e+20\nstrip_min_group = 0\n"
+        "strip_auto_obs_threshold = 1000\n")
     cwd = os.getcwd()
     try:
         assert run_app("test", ["-C", str(tmp_path), "--dump-config"]) == 0
@@ -179,16 +191,22 @@ def test_config_file_keys_of_the_reference(tmp_path, capsys):
                      "checkpoint_interval = 3", 'baseline_method = "lm"',
                      "gradient_tolerance = 1e-10",
                      "parameter_tolerance = 1e-09",
-                     "min_lm_diagonal = 1e-05", "max_lm_diagonal = 1e+20"):
+                     "min_lm_diagonal = 1e-05", "max_lm_diagonal = 1e+20",
+                     "strip_min_group = 0",
+                     "strip_auto_obs_threshold = 1000"):
             assert line in out, line
         assert run_app("test", ["-C", str(tmp_path), "--dump-config",
                                 "--reduction-alg", "2", "--num-threads",
                                 "5", "--checkpoint-interval", "2",
-                                "--baseline-method", "trf"]) == 0
+                                "--baseline-method", "trf",
+                                "--strip-min-group", "16",
+                                "--strip-auto-obs-threshold", "7"]) == 0
         out = capsys.readouterr().out
         assert "reduction_alg = 2" in out and "num_threads = 5" in out
         assert ("checkpoint_interval = 2" in out
                 and 'baseline_method = "trf"' in out)
+        assert ("strip_min_group = 16" in out
+                and "strip_auto_obs_threshold = 7" in out)
     finally:
         os.chdir(cwd)
 
@@ -219,11 +237,7 @@ def test_unported_routes_raise(synthetic_problem):
 
     bp = bucketize(synthetic_problem)
     cpu = torch.device("cpu")
-    for kw in (dict(pair_gather="strips"),
-               dict(sqrt_rcs_mode="bsr", pair_gather="obs"),
-               dict(kernel_layout="einsum"),
-               dict(solver_type=SolverType.SCHUR_COMPLEMENT,
-                    pair_gather="strips")):
+    for kw in (dict(kernel_layout="einsum"),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_linearizer(bp, SolverOptions(**kw), torch.float64, cpu)
 

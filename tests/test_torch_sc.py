@@ -202,7 +202,8 @@ def test_attempt_matches_jax(jax_attempt, synthetic_problem):
 def test_routes(synthetic_problem):
     """Dense RCS up to dense_rcs_max_cameras, BSR above it (the half
     table past bsr_pack_max_gb), the scatter assembly / implicit sweep
-    at 0; the other pair gathers raise naming their ROADMAP item."""
+    at 0; the strips and obs pair gathers build their indices
+    (tests/test_torch_strips.py holds them to the JAX package)."""
     tbp = t_bucketize(synthetic_problem, pow2_from=9)
     for solver in (TSolver.SCHUR_COMPLEMENT,
                    TSolver.POWER_SCHUR_COMPLEMENT):
@@ -218,10 +219,12 @@ def test_routes(synthetic_problem):
                            torch.float64, CPU)
             assert (lin.dense_rcs, lin.bsr_rcs, lin.bsr_sym) == (
                 dense, bsr, sym), (solver, kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_create(tbp, TOptions(solver_type=solver,
-                                   pair_gather="strips"), torch.float64,
-                     CPU)
+        for gather, index in (("strips", tlz.PairStripsIndex),
+                              ("obs", tlz.PairCsrIndex)):
+            lin = t_create(tbp, TOptions(solver_type=solver,
+                                         pair_gather=gather),
+                           torch.float64, CPU)
+            assert lin.dense_rcs and isinstance(lin.pair_index, index)
     with pytest.raises(ValueError, match="not implemented"):
         t_create(tbp, TOptions(solver_type=TSolver.SCHUR_COMPLEMENT,
                                preconditioner_type=TPrec.JACOBI),
@@ -281,7 +284,7 @@ def test_sc_rhs_hll_and_dense_assembly(lin_pair):
         for g, r in zip(th, js2.Hll_inv):
             _close(g, r, tol, "Hll_inv")
     tH, tdiag, tb, _ = tsc.sc_assemble_dense(
-        lp["tlins"], td.buckets, td.pairs_stream, td.cam_strips, lp["tlam"],
+        lp["tlins"], td.buckets, td.pair_index, td.cam_strips, lp["tlam"],
         lp["N"], cam_csr=td.cam_csr)
     _close(tH, jH, tol, "dense H")
     _close(chol9(tdiag), jchol, tol, "chol of the diagonal blocks")
@@ -320,7 +323,7 @@ def test_sc_assemble_bsr(lin_pair):
         lp["jlins"], buckets, pair_csr, cam_flat, csr, lp["jlam"], cstrips)
     t = lp["tb"]
     tH, tdiag, tb, _ = tsc.sc_assemble_bsr(
-        lp["tlins"], t.buckets, t.pairs_stream, t.cam_strips, lp["tlam"], N,
+        lp["tlins"], t.buckets, t.pair_index, t.cam_strips, lp["tlam"], N,
         cam_csr=t.cam_csr, symmetric=True)
     _close(tH, jH, tol, "bsr half table")
     _close(tdiag, jdiag, tol, "bsr diag")
@@ -496,7 +499,7 @@ def test_stream_reducers_equal_segment_sums(synthetic_problem):
               for b in lin.buckets)
     B = tuple(torch.as_tensor(rng.normal(size=a.shape)) for a in A)
     N = lin.num_cameras
-    ps = lin.pairs_stream
+    ps = lin.pair_index
     gram = tlz.cam_gram_stream([(A, A, 1.0), (A, B, -1.0)], lin.buckets,
                                lin.cam_strips)
     rows = tlz.cam_reduce_stream(A, lin.buckets, lin.cam_strips)
