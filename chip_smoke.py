@@ -14,12 +14,17 @@ pallas_cg="on", the grid CG kernel) and final-3068 (above
 dense_rcs_max_cameras: the block-sparse RCS, BSR mode; in float64 also
 with the half table and in dense mode, which must agree, and in float32
 also with the implicit operator; every K1/K2 call of one float32 and
-one float64 BSR solve held against the kernel's twin) and final-4585
-(above fused_obs_threshold: the host LM driver; in float64 the BSR half
-table and the fused-W stream factors, held to the attempt loop with the
-packed table and W tables; float32 timed and held to float64; every
-K1/K2 call of the float64 solve and of one float32 solve held against
-the kernel's twin) --
+one float64 BSR solve held against the kernel's twin) -- and
+`bundle_adjust` in process on final-4585 (above fused_obs_threshold:
+the host LM driver; in float64 the BSR half table and the fused-W
+stream factors, held to the attempt loop with the packed table and W
+tables; float32 timed and held to float64; every K1/K2 call of the
+float64 solve and of one float32 solve held against the kernel's twin),
+drives the einsum layout at final-3068 (float32 through the CLI, float64
+held to the flat layout's implicit mode) and the landmark mesh (a world
+of 1 rank over NCCL in this process, a world of 2 ranks in two processes
+on the one card over gloo, at trafalgar-257 and final-3068, each held to
+the other, with a checkpoint written by each resumed in the other) --
 resumes the final-3068 (CLI, host LM driver) and ladybug-49 solves from
 a checkpoint and holds them to the straight solves bit for bit, holds
 the numpy LM baseline (host) to the card's trajectory and scipy's TRF
@@ -37,6 +42,7 @@ yardstick (device time from a profiler trace, with the names of the
 kernels in it), times the CG operators at the final-3068 system, and
 prints
 
+    {"einsum_mesh": {...}, "card": ...}
     {"strips": {...}, "card": ...}
     {"checkpoint_baselines_formats": {...}, "card": ...}
     {"sc": {...}, "phase_walls_s": {...}}
@@ -45,7 +51,7 @@ prints
     {"kernels": [...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-as its last seven lines. Exits non-zero, printing no result, without a
+as its last eight lines. Exits non-zero, printing no result, without a
 CUDA device or without the repository's package beside it. It imports
 nothing of JAX or of the JAX package. Scratch files go to
 build/chip_smoke/ (listed in .gitignore).
@@ -660,8 +666,8 @@ def summarize_log(d: dict, tag: str) -> dict:
 # mode, under the DIAGONAL and POWER_SCHUR_COMPLEMENT preconditioners
 # and through the host LM driver, PoBA with dense E0, BSR E0 and the
 # implicit sweep, the strips (dense, and leftover-free in BSR mode) and
-# obs pair gathers and the W-free sandwich (forced), and SC and PoBA on
-# strips and obs in BSR mode
+# obs pair gathers and the W-free sandwich (forced), SC and PoBA on
+# strips and obs in BSR mode, and the einsum layout
 SC = dict(solver_type="SCHUR_COMPLEMENT")
 POBA = dict(solver_type="POWER_SCHUR_COMPLEMENT")
 SMALL_MODES = {
@@ -693,7 +699,8 @@ SMALL_MODES = {
     "sc_strips_bsr": (dict(SC, dense_rcs_max_cameras=4,
                            pair_gather="strips"), {}, (True, False)),
     "poba_obs_bsr": (dict(POBA, dense_rcs_max_cameras=4, pair_gather="obs"),
-                     {}, (True, False))}
+                     {}, (True, False)),
+    "einsum": (dict(kernel_layout="einsum"), {}, (True, False))}
 
 
 def solver_options(**kw):
@@ -723,7 +730,8 @@ def small_cross_check(only=None) -> None:
     for mode, (kw, globs, precisions) in SMALL_MODES.items():
         if only is not None and mode not in only:
             continue
-        sqrt_mode = "solver_type" not in kw
+        # the flat SQUARE_ROOT layout (the only one with W factors)
+        sqrt_mode = "solver_type" not in kw and "kernel_layout" not in kw
         for use_double in precisions:
             out = {}
             for dev in ("cuda", "cpu"):
@@ -740,7 +748,8 @@ def small_cross_check(only=None) -> None:
                 with patched(sqrt_flat, **globs), LoopSpy() as loops, \
                         FactorSpy() as factors:
                     s = bundle_adjust(p, opts, device=dev)
-                # the SC solvers and the sandwich build no W factors
+                # the SC solvers, the einsum layout and the sandwich
+                # build no W factors
                 kinds = (set() if not sqrt_mode
                          or "_SANDWICH_MIN_SLOTS" in globs
                          else {"fused" if globs else "tables"})
@@ -1655,26 +1664,36 @@ def repeats_bit_for_bit(fn, what: str) -> str:
 def determinism_phase(final_setup: "SharedSetup", traf: Path) -> None:
     """Stage1 and stage2 twice on the same input, bit for bit: final-3068
     in SQUARE_ROOT BSR mode (packed table) in f32 and f64 and in SC BSR
-    mode (f32), trafalgar-257 in SQUARE_ROOT dense mode (f32)."""
+    mode (f32), trafalgar-257 in SQUARE_ROOT dense mode (f32), and in the
+    routes of segment sums (f64): the einsum layout with
+    reduction_alg=0 and SC's scatter assembly."""
     import torch
 
+    traf_setup = SharedSetup(traf)
     cases = (("final-3068 SQUARE_ROOT BSR f32", final_setup, torch.float32,
               {}, "bsr"),
              ("final-3068 SQUARE_ROOT BSR f64", final_setup, torch.float64,
               {}, "bsr"),
              ("final-3068 SC BSR f32", final_setup, torch.float32,
               dict(solver_type="SCHUR_COMPLEMENT"), "bsr"),
-             ("trafalgar-257 SQUARE_ROOT dense f32", SharedSetup(traf),
-              torch.float32, {}, "dense"))
+             ("trafalgar-257 SQUARE_ROOT dense f32", traf_setup,
+              torch.float32, {}, "dense"),
+             ("trafalgar-257 SQUARE_ROOT einsum, segment sums, f64",
+              traf_setup, torch.float64,
+              dict(kernel_layout="einsum", reduction_alg=0), "implicit"),
+             ("trafalgar-257 SC scatter f64", traf_setup, torch.float64,
+              dict(solver_type="SCHUR_COMPLEMENT", dense_rcs_max_cameras=0),
+              "implicit"))
     for what, setup, dtype, kw, mode in cases:
         t = time.monotonic()
         lin, st = setup.linearizer(dtype, use_double=dtype == torch.float64,
                                    **kw)
         explicit = getattr(lin, "explicit_rcs", getattr(lin, "dense_rcs",
                                                         False))
-        check(lin.bsr_rcs == (mode == "bsr") and explicit == (
-            mode == "dense") and not lin.bsr_sym,
-              f"{what}: route (bsr {lin.bsr_rcs}, sym {lin.bsr_sym})")
+        bsr, sym = getattr(lin, "bsr_rcs", False), getattr(lin, "bsr_sym",
+                                                           False)
+        check(bsr == (mode == "bsr") and explicit == (mode == "dense")
+              and not sym, f"{what}: route (bsr {bsr}, sym {sym})")
         s1 = repeats_bit_for_bit(lambda: lin.stage1(st.cams, st.lm_ps),
                                  f"{what} stage1")
         lins = lin.stage1(st.cams, st.lm_ps)[0]
@@ -1722,7 +1741,8 @@ def timed_path(tag: str, fn) -> tuple:
     summarize_log(log, tag)
     r = path_readout(log, wall, torch.cuda.max_memory_allocated())
     print(f"[{tag}] {r['solver_type']}: {r['s_per_iteration']:.4f} s per "
-          f"LM iteration ({r['iterations']}), prepare "
+          f"LM iteration ({r['iterations']}), stage2 "
+          f"{r['stage2_s_per_iteration']:.4f} s, prepare "
           f"{r['prepare_s_per_iteration']:.4f} s and linear solve "
           f"{r['linear_solve_s_per_iteration']:.4f} s per iteration, CG "
           f"{r['cg_iterations']}, costs {r['costs']}, accepted "
@@ -2083,11 +2103,13 @@ def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
 
 def final4585_phase() -> dict:
     """Phase 8: the final-4585 twin (9.1M observations, above
-    fused_obs_threshold) through the CLI's main path and the routes it
-    selects, each run with the launch counts set to 0 just before it and
-    read just after. Returns, for the kernel table, the launch counts and
-    attempts of 8a and 8c, and the twin checks (TwinCheck.stats) of 8a
-    (float64) and of 8c's untimed solve (float32)."""
+    fused_obs_threshold) through bundle_adjust's main path and the routes
+    it selects, on one load, bucketize and index build (SharedSetup, the
+    CLI's own loader and preprocessing), each run with the launch counts
+    set to 0 just before it and read just after. Returns, for the kernel
+    table, the launch counts and attempts of 8a and 8c, and the twin
+    checks (TwinCheck.stats) of 8a (float64) and of 8c's untimed solve
+    (float32)."""
     import torch
 
     from rootba_tpu_torch.ops import kernels
@@ -2115,20 +2137,23 @@ def final4585_phase() -> dict:
         return attempts
 
     def held(what, log, ref, tol, cg=True) -> float:
-        """log's costs within rel tol of ref's over ref's iterations,
-        with the same accept/reject flags (and CG counts)."""
-        k = len(ref["cost"])
+        """log's costs within rel tol of ref's over the iterations both
+        ran (at least one), with the same accept/reject flags (and CG
+        counts)."""
+        k = min(len(log["cost"]), len(ref["cost"]))
         rel = max(abs(x - y) / abs(y) for x, y in zip(log["cost"][:k],
-                                                      ref["cost"]))
-        check(len(log["cost"]) >= k and rel < tol
-              and log["step_is_successful"][:k] == ref["step_is_successful"]
+                                                      ref["cost"][:k]))
+        check(k >= 2 and rel < tol
+              and log["step_is_successful"][:k]
+              == ref["step_is_successful"][:k]
               and (not cg or log["linear_solver_iterations"][:k]
-                   == ref["linear_solver_iterations"]),
+                   == ref["linear_solver_iterations"][:k]),
               f"final4585: {what}: costs {log['cost'][:k]}, accepted "
               f"{log['step_is_successful'][:k]}, CG "
               f"{log['linear_solver_iterations'][:k]} against "
-              f"{ref['cost']}, {ref['step_is_successful']}, "
-              f"{ref['linear_solver_iterations']}: rel {rel} (tol {tol:g})")
+              f"{ref['cost'][:k]}, {ref['step_is_successful'][:k]}, "
+              f"{ref['linear_solver_iterations'][:k]}: rel {rel} (tol "
+              f"{tol:g})")
         return rel
 
     def readout(tag, log, wall, peak, wall_of="CLI"):
@@ -2143,16 +2168,23 @@ def final4585_phase() -> dict:
                 f"{s['stage_s']}, peak device memory "
                 f"{peak / 2**20:.1f} MiB")
 
-    # 8a: float64, default options, 2 LM iterations through run_app: the
-    # host LM driver, the half table and the fused-W factors, whose W
-    # rows K2 builds after each slot gather; every K1 and K2 call held
-    # against its twin
+    # every run shares one load, one bucketize and one build of each host
+    # index (SharedSetup): the host setup split by step
+    shared = SharedSetup(big)
+    print(f"[phase 8] final-4585 twin loaded and preprocessed in "
+          f"{shared.load_s:.3f} s, bucketized in {shared.bucketize_s:.3f} s",
+          flush=True)
+
+    # 8a: float64, default options, 2 LM iterations through
+    # bundle_adjust: the host LM driver, the half table and the fused-W
+    # factors, whose W rows K2 builds after each slot gather; every K1
+    # and K2 call held against its twin
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
             TwinCheck() as tw:
-        la = run_cli(big, 2, "final4585_f64", use_double=True)
+        la = shared.solve(use_double=True, max_num_iterations=2)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak_a = torch.cuda.max_memory_allocated()
@@ -2162,25 +2194,19 @@ def final4585_phase() -> dict:
     print(f"[phase 8a] final-4585 twin f64, default options (host LM "
           f"driver, BSR half table, fused-W), 2 LM iterations with every "
           f"K1 and K2 call held against its twin (the times include the "
-          f"checks): {readout('final4585_f64', la, wall, peak_a)}, "
-          f"launches {n}; {tw.report('final4585 f64')}", flush=True)
+          f"checks; the host index builds {shared.builds_s:.3f} s): "
+          f"{readout('final4585_f64', la, wall, peak_a, 'bundle_adjust')},"
+          f" launches {n}; {tw.report('final4585 f64')}", flush=True)
 
-    # 8b, 8d and 8c share one load, one bucketize and one build of each
-    # host index (SharedSetup), which the CLI run 8a pays on its own
-    shared = SharedSetup(big)
-    print(f"[phase 8] final-4585 twin loaded in {shared.load_s:.3f} s, "
-          f"bucketized in {shared.bucketize_s:.3f} s (shared by 8b, 8d "
-          f"and 8c)", flush=True)
-
-    # 8b: the same problem in float64 through the routes that the
-    # final-3068 phases check: the attempt loop, the packed table and W
-    # tables by K2
+    # 8b: the same problem in float64, 1 LM iteration, through the
+    # routes that the final-3068 phases check: the attempt loop, the
+    # packed table and W tables by K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with patched(sqrt_flat, _FUSED_W_MIN_BYTES=1 << 62), LoopSpy() as loops, \
             RouteSpy() as spy, FactorSpy() as factors:
-        lb = shared.solve(use_double=True, max_num_iterations=2,
+        lb = shared.solve(use_double=True, max_num_iterations=1,
                           lm_loop="fused", bsr_pack_max_gb=64.0)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
@@ -2189,9 +2215,8 @@ def final4585_phase() -> dict:
           False, "tables", True)
     rb = readout("final4585_f64_packed", lb, wall, peak_b, "bundle_adjust")
     print(f"[phase 8b] final-4585 twin f64, attempt loop, BSR packed "
-          f"table, W tables (K2), 2 LM iterations (index builds "
-          f"{shared.builds_s:.3f} s): {rb}, launches {n}", flush=True)
-    check(len(lb["cost"]) == len(la["cost"]), "final4585: 8b's length")
+          f"table, W tables (K2), 1 LM iteration: {rb}, launches {n}",
+          flush=True)
     rel = held("f64 packed route vs the default route", lb, la, 1e-8)
     print(f"[phase 8b] default route vs packed route: identical "
           f"accept/reject and CG counts, costs within rel {rel:.2e} (tol "
@@ -2199,23 +2224,22 @@ def final4585_phase() -> dict:
           f"table, fused-W, twin checks) vs {peak_b / 2**20:.1f} MiB "
           f"(packed, W tables)", flush=True)
 
-    # 8d: 8a's route once more in process, without the twin checks, so
-    # that its times and peak are the route's own
+    # 8d: 8a's route once more, 1 LM iteration, without the twin
+    # checks, so that its times and peak are the route's own
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        ld = shared.solve(use_double=True, max_num_iterations=2)
+        ld = shared.solve(use_double=True, max_num_iterations=1)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     route("final4585 f64 timed", ld, loops, spy, factors, n, "host", True,
           "fused", True)
-    check(len(ld["cost"]) == len(la["cost"]), "final4585: 8d's length")
-    rel = held("f64 in process vs the CLI", ld, la, 1e-8)
+    rel = held("f64 unchecked vs checked", ld, la, 1e-8)
     rd = readout("final4585_f64_timed", ld, wall, peak, "bundle_adjust")
     print(f"[phase 8d] final-4585 twin f64, default options in process, "
-          f"no twin checks, 2 LM iterations: {rd}, launches {n}; against "
+          f"no twin checks, 1 LM iteration: {rd}, launches {n}; against "
           f"8a: identical accept/reject and CG counts, costs within rel "
           f"{rel:.2e} (tol 1e-8)", flush=True)
 
@@ -2235,14 +2259,14 @@ def final4585_phase() -> dict:
           f"its twin ({wall:.3f} s): {tw32.report('final4585 f32')}",
           flush=True)
 
-    # 8c: float32, default options, 3 LM iterations, timed, in process
+    # 8c: float32, default options, 2 LM iterations, timed, in process
     # on the shared setup: the host LM driver, the packed table and W
     # tables, so K1 and K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        lc = shared.solve(use_double=False, max_num_iterations=3)
+        lc = shared.solve(use_double=False, max_num_iterations=2)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2250,7 +2274,7 @@ def final4585_phase() -> dict:
                      False, "tables", True)
     counts["final4585"] = (n, attempts)
     print(f"[phase 8c] final-4585 twin f32, default options in process "
-          f"(host LM driver, BSR packed table, W tables), 3 LM iterations: "
+          f"(host LM driver, BSR packed table, W tables), 2 LM iterations: "
           f"{readout('final4585_f32', lc, wall, peak, 'bundle_adjust')}, "
           f"launches {n}", flush=True)
     shared = None
@@ -2497,9 +2521,275 @@ def formats_phase(final: Path, lady: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the einsum layout; phase 17: the landmark mesh
+
+# the routes a mesh takes (the einsum layout, SC's scatter assembly,
+# PoBA's implicit E0 sweep), float64; an unsharded run with
+# reduction_alg=0 takes the same segment sums
+MESH_OPTS = dict(use_double=True, kernel_layout="einsum",
+                 dense_rcs_max_cameras=0)
+MESH_SOLVERS = ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT")
+MESH_WORKER_TIMEOUT_S = 420
+
+
+def einsum_phase(final: Path, final_setup: "SharedSetup") -> dict:
+    """Phase 16: the einsum layout (kernel_layout="einsum") at the
+    final-3068 twin. float32, 3 LM iterations through the CLI, timed,
+    with the launch counts set to 0 just before and read just after (the
+    layout launches none of K1-K3); float64, 2 LM iterations in process,
+    held to the flat layout's implicit mode at rel 1e-8 with the same
+    flags and CG counts; the float32 costs held to the float64 einsum
+    run at 2e-3."""
+    import torch
+
+    from rootba_tpu_torch.ops import kernels
+
+    out = {}
+    kernels.reset_launches()
+    with LoopSpy() as loops:
+        lf, out["einsum_final3068_f32"] = timed_path(
+            "phase 16", lambda: run_cli(final, 3, "einsum_final3068_f32",
+                                        ("--kernel-layout", "einsum")))
+    n = dict(kernels.LAUNCHES)
+    check(loops.loops == ["fused"] and not any(n.values()),
+          f"einsum f32: LM loops {loops.loops}, launches {n}")
+    ref = {}
+    for tag, kw in (("einsum", dict(kernel_layout="einsum")),
+                    ("implicit", dict(sqrt_rcs_mode="implicit"))):
+        ref[tag], out[f"{tag}_final3068_f64"] = timed_path(
+            "phase 16", lambda kw=kw: final_setup.solve(
+                use_double=True, max_num_iterations=2, **kw))
+    rel = held_logs("final3068: einsum f64 vs flat implicit f64",
+                    ref["einsum"], ref["implicit"], 1e-8)
+    rel32 = held_logs("final3068: einsum f32 vs einsum f64", lf,
+                      ref["einsum"], 2e-3, cg=False)
+    out["einsum_vs_implicit_f64_rel"] = rel
+    out["einsum_f32_vs_f64_rel"] = rel32
+    print(f"[phase 16] final-3068 einsum f64 vs flat implicit f64: the "
+          f"same flags and CG counts, costs within rel {rel:.2e} (tol "
+          f"1e-8); einsum f32 (CLI) vs f64: rel {rel32:.2e} (tol 2e-3); "
+          f"no kernel launched {n}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_solve(setup: "SharedSetup", **kw) -> dict:
+    """setup.solve(**kw) with the all-reduce counters set to 0 just
+    before: flags, CG counts, costs, the final state, seconds per LM
+    iteration and the all-reduces per iteration with their host seconds'
+    share of the minimizer time."""
+    from rootba_tpu_torch.parallel import mesh
+
+    mesh.reset_stats()
+    log = setup.solve(**kw)
+    its = len(log["iteration_time"]) - 1
+    mini = log["_static"]["solver"]["minimizer_time_in_seconds"]
+    return dict(cost=log["cost"], ok=log["step_is_successful"],
+                cg=log["linear_solver_iterations"],
+                s_per_iteration=sum(log["iteration_time"][1:]) / its,
+                all_reduces_per_iteration=mesh.STATS["all_reduces"] / its,
+                all_reduce_share=mesh.STATS["all_reduce_s"] / mini,
+                state=final_state(setup.problem))
+
+
+def _mesh_runs(traf: "SharedSetup", world: int, ckpt_dir: Path) -> dict:
+    """The trafalgar-257 runs of one world: SQUARE_ROOT, SC and PoBA (3
+    LM iterations each) and a host-loop run writing its checkpoint after
+    each of 2 iterations."""
+    out = {s: mesh_solve(traf, solver_type=s, max_num_iterations=3,
+                         **MESH_OPTS) for s in MESH_SOLVERS}
+    path = ckpt_dir / f"ckpt_w{world}.npz"
+    out["written"] = mesh_solve(traf, lm_loop="host", max_num_iterations=2,
+                                checkpoint_interval=1,
+                                checkpoint_path=str(path), **MESH_OPTS)
+    return out
+
+
+def _resumed(traf: "SharedSetup", ckpt_dir: Path, world: int) -> dict:
+    """Resume the other world's checkpoint to 4 LM iterations."""
+    return mesh_solve(traf, lm_loop="host", max_num_iterations=4,
+                      checkpoint_path=str(ckpt_dir / f"ckpt_w{3 - world}"
+                                                     f".npz"), **MESH_OPTS)
+
+
+def mesh_worker(rank: int, port: int) -> int:
+    """One rank of phase 17's world of 2: gloo (two ranks, one card), on
+    cuda:0; its runs go to WORK/mesh/w2_r{rank}.json and .npz."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from rootba_tpu_torch.parallel.mesh import init_distributed
+
+    wd = WORK / "mesh"
+    init_distributed(f"localhost:{port}", 2, rank)
+    check(dist.get_backend() == "gloo", f"world 2 on one card: backend "
+                                        f"{dist.get_backend()}")
+    traf = SharedSetup(wd / "trafalgar.npz")
+    out = _mesh_runs(traf, 2, wd)
+    out["resumed"] = _resumed(traf, wd, 2)
+    out["final3068"] = mesh_solve(SharedSetup(wd / "final3068.npz"),
+                                  max_num_iterations=1, **MESH_OPTS)
+    dist.destroy_process_group()
+    np.savez(wd / f"w2_r{rank}.npz", **{f"{k}.{a}": v for k, r in
+                                        out.items()
+                                        for a, v in r.pop("state").items()})
+    (wd / f"w2_r{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase() -> dict:
+    """Phase 17: the landmark mesh (parallel/mesh.py) on the card, f64.
+    (a) A world of 1 rank over NCCL in this process: trafalgar-257 with
+    SQUARE_ROOT (einsum), SC (scatter) and PoBA (implicit E0), 3 LM
+    iterations each, a straight host-loop solve of 4 and one writing its
+    checkpoint after each of 2; final-3068 SQUARE_ROOT, 1 LM iteration.
+    (b) A world of 2 ranks, two processes on cuda:0 over gloo: the same
+    runs, each rank's summaries and final states identical, held to
+    world 1 at rel 1e-10 (final-3068 1e-8) with the same flags and CG
+    counts; each world resumes the other's checkpoint to 4 iterations,
+    held to the straight solve at rel 1e-8. Then world 1's trafalgar
+    solves equal the unsharded ones with the same reductions
+    (reduction_alg=0) bit for bit: an all-reduce over one rank is the
+    identity. The twins are written once as .npz, which both ranks read.
+    """
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rootba_tpu_torch.parallel.mesh import init_distributed
+
+    wd = WORK / "mesh"
+    wd.mkdir(parents=True, exist_ok=True)
+    for f in wd.glob("*"):
+        f.unlink()
+    t = time.monotonic()
+    for name in ("trafalgar", "final3068"):
+        write_twin(name, npz=True).rename(wd / f"{name}.npz")
+    traf = SharedSetup(wd / "trafalgar.npz")
+    fin = SharedSetup(wd / "final3068.npz")
+    print(f"[phase 17] twins written as .npz and loaded in "
+          f"{time.monotonic() - t:.1f} s", flush=True)
+
+    init_distributed(f"localhost:{_free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"world 1 on one card: "
+                                            f"backend {dist.get_backend()}")
+        w1 = _mesh_runs(traf, 1, wd)
+        w1["straight"] = mesh_solve(traf, lm_loop="host",
+                                    max_num_iterations=4, **MESH_OPTS)
+        w1["final3068"] = mesh_solve(fin, max_num_iterations=1, **MESH_OPTS)
+        fin = None
+        torch.cuda.empty_cache()
+        # (b): the world of 2, this script's own mesh_worker per rank
+        port = _free_port()
+        t = time.monotonic()
+        logs = [open(wd / f"w2_r{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+             str(r), str(port)], stdout=logs[r], stderr=subprocess.STDOUT,
+            cwd=str(ROOT)) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=MESH_WORKER_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        w2_wall = time.monotonic() - t
+        for r, rc in enumerate(rcs):
+            check(rc == 0, f"mesh world 2 rank {r} exited {rc}: "
+                           f"{(wd / f'w2_r{r}.log').read_text()[-3000:]}")
+        w1["resumed"] = _resumed(traf, wd, 1)
+    finally:
+        dist.destroy_process_group()
+
+    w2 = []
+    for r in range(2):
+        d = json.loads((wd / f"w2_r{r}.json").read_text())
+        with np.load(wd / f"w2_r{r}.npz") as z:
+            for k in z.files:
+                run, a = k.split(".")
+                d[run].setdefault("state", {})[a] = z[k]
+        w2.append(d)
+    out = {"world2_wall_s": w2_wall}
+    for run, want in w1.items():
+        if run == "straight":
+            continue
+        a, b = w2[0][run], w2[1][run]
+        check(a["cost"] == b["cost"] and a["ok"] == b["ok"]
+              and a["cg"] == b["cg"] and all(
+                  np.array_equal(a["state"][k], b["state"][k])
+                  for k in a["state"]),
+              f"mesh {run}: the ranks' summaries differ: {a['cost']} / "
+              f"{b['cost']}, CG {a['cg']} / {b['cg']}")
+        if run == "resumed":
+            # each world's resume of the other's file against world 1's
+            # straight solve
+            for what, got in (("2 -> 1", want), ("1 -> 2", a)):
+                rel = held_logs(f"mesh resume {what}", dict(
+                    cost=got["cost"], step_is_successful=got["ok"],
+                    linear_solver_iterations=got["cg"]), dict(
+                    cost=w1["straight"]["cost"],
+                    step_is_successful=w1["straight"]["ok"],
+                    linear_solver_iterations=w1["straight"]["cg"]), 1e-8)
+                out[f"resume_{what.replace(' -> ', 'to')}_rel"] = rel
+                print(f"[phase 17] checkpoint of world {what[0]} resumed "
+                      f"in world {what[-1]} to 4 LM iterations: the "
+                      f"straight solve's flags and CG counts, costs within "
+                      f"rel {rel:.2e} (tol 1e-8)", flush=True)
+            continue
+        tol = 1e-8 if run == "final3068" else 1e-10
+        rel = held_logs(f"mesh {run}: world 2 vs world 1", dict(
+            cost=a["cost"], step_is_successful=a["ok"],
+            linear_solver_iterations=a["cg"]), dict(
+            cost=want["cost"], step_is_successful=want["ok"],
+            linear_solver_iterations=want["cg"]), tol)
+        srel = held_states(f"mesh {run}: world 2 vs world 1", a["state"],
+                           want["state"], tol)
+        out[run] = {f"world{w}": {k: r[k] for k in (
+            "s_per_iteration", "all_reduces_per_iteration",
+            "all_reduce_share", "cg")} for w, r in ((1, want), (2, a))}
+        out[run].update(cost_rel=rel, state_rel=srel)
+        print(f"[phase 17] {run}: world 2 (gloo, two ranks on cuda:0) vs "
+              f"world 1 (NCCL): the same flags and CG counts {a['cg'][1:]},"
+              f" costs within rel {rel:.2e}, states within {srel:.2e} (tol "
+              f"{tol:g}); s per LM iteration {a['s_per_iteration']:.4f} / "
+              f"{want['s_per_iteration']:.4f}; all-reduces per LM "
+              f"iteration {a['all_reduces_per_iteration']:.1f} / "
+              f"{want['all_reduces_per_iteration']:.1f}, their host share "
+              f"of the minimizer {a['all_reduce_share']:.3f} / "
+              f"{want['all_reduce_share']:.3f}", flush=True)
+
+    # world 1 against the unsharded solves with the same reductions
+    for s in MESH_SOLVERS:
+        got = mesh_solve(traf, solver_type=s, max_num_iterations=3,
+                         reduction_alg=0, **MESH_OPTS)
+        want = w1[s]
+        check(got["cost"] == want["cost"] and got["cg"] == want["cg"]
+              and all(np.array_equal(got["state"][k], want["state"][k])
+                      for k in want["state"]),
+              f"mesh {s}: world 1 {want['cost']} and the unsharded solve "
+              f"{got['cost']} differ")
+    print(f"[phase 17] world 1 (NCCL) equals the unsharded solves of "
+          f"{', '.join(MESH_SOLVERS)} with reduction_alg=0 bit for bit "
+          f"(costs, CG counts, final states)", flush=True)
+    return out
+
+
 PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
-          "final3068", "determinism", "sc", "strips", "checkpoint",
-          "baselines", "formats", "final4585", "traced")
+          "final3068", "determinism", "sc", "strips", "einsum", "mesh",
+          "checkpoint", "baselines", "formats", "final4585", "traced")
 
 
 def main(argv=None) -> int:
@@ -2512,6 +2802,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
                     help=f"comma-separated subset of {', '.join(PHASES)}")
+    # phase 17 starts this script once per rank of its world of 2
+    ap.add_argument("--mesh-worker", nargs=2, type=int, default=None,
+                    metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
     if only is not None and not only <= set(PHASES):
@@ -2524,6 +2817,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.mesh_worker is not None:
+        return mesh_worker(*args.mesh_worker)
     from rootba_tpu_torch.ops import kernels
     from rootba_tpu_torch.utils.device import resolve_device
 
@@ -2570,10 +2865,10 @@ def partial_run(only, want, lap, dev) -> int:
                         "formats"),
             "trafalgar": ("trafalgar", "sc", "determinism", "strips"),
             "final3068": ("final3068", "sc", "determinism", "strips",
-                          "checkpoint", "formats")}
+                          "einsum", "checkpoint", "formats")}
     lady, traf, final = (write_twin(n) if any(map(want, ps)) else None
                          for n, ps in need.items())
-    if want("determinism") or want("sc") or want("strips"):
+    if any(map(want, ("determinism", "sc", "strips", "einsum"))):
         final_setup = SharedSetup(final)
         if want("determinism"):
             determinism_phase(final_setup, traf)
@@ -2584,6 +2879,12 @@ def partial_run(only, want, lap, dev) -> int:
         if want("strips"):
             strips_phase(traf, final, final_setup, errs)
             lap("phase 15")
+        if want("einsum"):
+            einsum_phase(final, final_setup)
+            lap("phase 16")
+    if want("mesh"):
+        mesh_phase()
+        lap("phase 17")
     if want("checkpoint"):
         checkpoint_phase(final, SharedSetup(lady))
         lap("phase 12")
@@ -2833,6 +3134,12 @@ def full_run(smi, lap, walls, dev, t0) -> int:
         traf, final, final_setup, errs)
     lap("phase 15")
 
+    # phases 16 and 17: the einsum layout, the landmark mesh
+    layout_out = {"einsum": einsum_phase(final, final_setup)}
+    lap("phase 16")
+    layout_out["mesh"] = mesh_phase()
+    lap("phase 17")
+
     # phases 12-14: checkpoint/resume, the CERES baselines, the formats
     host_out = {"checkpoint": checkpoint_phase(final, SharedSetup(lady))}
     lap("phase 12")
@@ -2859,7 +3166,8 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             ("trafalgar", traf, 5, sqrt_k, (), None),
             ("trafalgar_on", traf, 3, sqrt_k + ("pcg_dense_grid",), K3_ON,
              None),
-            ("final3068", final, 2, sqrt_k, (), None),
+            ("final3068", final, 2, sqrt_k, (),
+             lambda: final_setup.solve(max_num_iterations=2)),
             # the SC and PoBA paths: K1 only
             ("sc_ladybug", lady, 5, ("outer81_fold",), (),
              lambda: run_cli(lady, 5, "sc_ladybug_counted", solver=SCT)),
@@ -2875,9 +3183,9 @@ def full_run(smi, lap, walls, dev, t0) -> int:
                                        max_num_iterations=2)),
             # the strips and obs pair gathers: K1 and K2 (and the padded
             # grid's K3 at ladybug); final-3068 on phase 15's index builds
-            ("strips_ladybug", lady, 3, sqrt_k + ("pcg_dense_cluster",),
+            ("strips_ladybug", lady, 2, sqrt_k + ("pcg_dense_cluster",),
              STRIPS, None),
-            ("obs_ladybug", lady, 3, sqrt_k + ("pcg_dense_cluster",), OBS,
+            ("obs_ladybug", lady, 2, sqrt_k + ("pcg_dense_cluster",), OBS,
              None),
             ("strips_final3068", final, 1, sqrt_k, (),
              lambda: final_setup.solve(pair_gather="strips",
@@ -2888,7 +3196,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
         if path == "final3068":
             # keeps the last stage2's system for the operator timing
             with final_spy:
-                log, n, ms = counted_run(bal, iters, path, extra)
+                log, n, ms = counted_run(bal, iters, path, extra, run=run)
         else:
             log, n, ms = counted_run(bal, iters, path, extra, run=run)
         logs[path] = log
@@ -3012,6 +3320,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             k: v / attempts[p] for k, v in n.items() if v}
         strips_out[p]["device_ms_per_attempt"] = {
             k: ms[k] / attempts[p] for k, v in n.items() if v}
+    print(json.dumps({"einsum_mesh": layout_out, "card": smi}))
     print(json.dumps({"strips": strips_out, "card": smi}))
     print(json.dumps({"checkpoint_baselines_formats": host_out,
                       "card": smi}))

@@ -3,13 +3,22 @@
 baselines run on the host and need no card).
 
 Usage: python -m rootba_tpu_torch.cli.bal --input problem.txt [options]
+
+A sharded run starts one process per rank with ROOTBA_COORDINATOR
+(host:port), ROOTBA_NUM_PROCESSES and ROOTBA_PROCESS_ID set: each joins
+the process group (parallel/mesh.py), solves its landmark rows on its
+card (every rank on cuda:0 over gloo where there are fewer cards than
+ranks), and rank 0 writes the log and the output.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import List, Optional
+
+import torch.distributed as dist
 
 
 def run_app(summary_text: str, argv: Optional[List[str]] = None,
@@ -19,8 +28,21 @@ def run_app(summary_text: str, argv: Optional[List[str]] = None,
     parsed = parse_bal_app_arguments(summary_text, argv, forced_solver_type)
     if parsed is None:
         return 0
-    options, device_name = parsed
+    joined = ("ROOTBA_NUM_PROCESSES" in os.environ
+              and not dist.is_initialized())
+    if joined:
+        # before the device is resolved: "cuda" is then this rank's card
+        from rootba_tpu_torch.parallel.mesh import init_distributed
 
+        init_distributed()
+    try:
+        return _run(*parsed)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(options, device_name: str) -> int:
     from rootba_tpu_torch.bal.problem import (
         DatasetSummary,
         PipelineTimingSummary,
@@ -45,6 +67,8 @@ def run_app(summary_text: str, argv: Optional[List[str]] = None,
     bundle_adjust(problem, options.solver, solver_summary, timing,
                   device=device)
 
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0  # every rank holds the solution; rank 0 writes it
     if options.dataset.save_output:
         t0 = time.monotonic()
         out_path = options.dataset.output_optimized_path

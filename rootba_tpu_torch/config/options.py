@@ -139,9 +139,9 @@ class BalDatasetOptions:
 class SolverOptions:
     """Reference: src/rootba/bal/solver_options.hpp:46-283, trimmed to the
     options the port reads. The JAX package's knobs of paths the port
-    does not have yet (the multi-device mesh, strip gathers and the
-    host driver's calibration timing) are left out, so setting one is
-    an unknown-key or unknown-flag error."""
+    does not have (the host driver's calibration timing, a departure by
+    design) are left out, so setting one is an unknown-key or
+    unknown-flag error."""
 
     solver_type: SolverType = opt(
         SolverType.SQUARE_ROOT,
@@ -223,8 +223,10 @@ class SolverOptions:
 
     # --- routing of the flat SQUARE_ROOT solver -------------------------
     kernel_layout: str = opt(
-        "flat", help="per-bucket table layout; only 'flat' is ported "
-                     "('einsum' raises)")
+        "flat", help="SquareRoot solver data layout: 'flat' (default) "
+                     "uses 2-D per-bucket landmark-row tables; 'einsum' "
+                     "uses per-bucket [L,n,2,9] batched tensors (used "
+                     "automatically for multi-device meshes)")
     lm_loop: str = opt(
         "auto", help="'fused' runs the LM attempt loop (one host sync "
                      "per attempt); 'host' runs the reference's "
@@ -240,6 +242,11 @@ class SolverOptions:
                      "says; 'fast' (default) leaves the choice to "
                      "lm_loop. Stage times come from CUDA events at the "
                      "stage boundaries in either mode")
+    num_devices: int = opt(
+        0, help="number of ranks of the process group to shard landmark "
+                "blocks over (parallel/mesh.py): 0 = every rank, 1 = no "
+                "mesh, k > 1 must be the world size; without a process "
+                "group 0 runs unsharded and k > 1 is an error")
     checkpoint_path: str = opt(
         "", help="mid-solve checkpoint file (npz); if it exists, the "
                  "host-loop LM driver resumes from it (same solver "

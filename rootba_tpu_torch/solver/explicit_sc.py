@@ -23,8 +23,12 @@ sc/linearization_power_sc.hpp) on one device:
   x = sum_i (Hpp^-1 E0)^i Hpp^-1 (-b) with the zeta test, E0 assembled
   densely, as a BSR table, or swept implicitly (e0_matvec).
 
-The JAX package's mesh branches have no counterpart: the port's config
-has no mesh (ROADMAP.md, queue 1).
+Under a mesh (parallel.mesh) the dense and BSR modes are off, as in the
+JAX package: SC assembles by the scatter and PoBA sweeps E0 implicitly,
+every bucket holding this rank's landmark rows. Each sum over landmarks
+is completed by one all-reduce: the RHS b, the [P+1, 81] pair blocks
+once per stage2, the Jp gram blocks, every E0 sweep and l_diff;
+sc_matvec reads the replicated H and needs none.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from rootba_tpu_torch.config.options import PreconditionerType
 from rootba_tpu_torch.core import lie
 from rootba_tpu_torch.ops.block9 import chol9, chol9_inv, inv9_apply
+from rootba_tpu_torch.parallel.mesh import all_reduce_sum, shard_rows
 from rootba_tpu_torch.solver.cg import pcg
 from rootba_tpu_torch.solver.linearization import (
     POSE_SIZE,
@@ -123,7 +128,10 @@ class PairStructure(NamedTuple):
         return self.pair_row.shape[0]
 
 
-def build_pair_structure(bp, num_cameras: int, device) -> PairStructure:
+def build_pair_structure(bp, num_cameras: int, device,
+                         mesh=None) -> PairStructure:
+    """The unique pairs of the whole problem; under a mesh each bucket's
+    pair ids keep this rank's landmark rows."""
     N = num_cameras
     codes_list = []
     for b in bp.buckets:
@@ -145,7 +153,8 @@ def build_pair_structure(bp, num_cameras: int, device) -> PairStructure:
 
     return PairStructure(
         pair_row=up(unique // N), pair_col=up(unique % N),
-        pair_ids=tuple(up(np.searchsorted(unique, c)) for c in codes_list),
+        pair_ids=tuple(up(shard_rows(np.searchsorted(unique, c), mesh))
+                       for c in codes_list),
         diag_pid=up(np.where(exists, pos, P)))
 
 
@@ -157,7 +166,7 @@ class SCStage2(NamedTuple):
 
 
 def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
-                   cam_strips=None):
+                   cam_strips=None, mesh=None):
     """Per-bucket damped Hll^-1 and the RCS right-hand side
     b = Jp'(r - Jl Hll^-1 Jl' r) (landmark_block stage(),
     sc/landmark_block.hpp:342-364), reduced per camera through the
@@ -190,19 +199,21 @@ def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
         b = cam_reduce_strips(torch.cat(b_parts, dim=0), buckets, cam_strips)
     elif cam_csr is not None:
         b = csr_cam_reduce(b_parts, cam_csr, num_cameras)
-    return b, tuple(Hll_invs)
+    return all_reduce_sum(b, mesh), tuple(Hll_invs)
 
 
 def sc_assemble(lins, buckets, pairs: PairStructure, lam, num_cameras,
-                cam_csr=None):
+                cam_csr=None, mesh=None):
     """get_Hb (sc/linearization_sc.hpp:232-348 + landmark_block add_Hb)
     in block-sparse form: every ordered pair block of every landmark
-    added into its unique pair by a segment sum (index_add_, as the JAX
-    package's segment_sum). The dense_rcs_max_cameras=0 path."""
+    added into its unique pair by a segment sum (the JAX package's
+    segment_sum). The dense_rcs_max_cameras=0 path, and SC's path under
+    a mesh, where H's pair blocks are all-reduced once, before the
+    damping."""
     P = pairs.num_pairs
     H = lins[0].Jp.new_zeros((P + 1, P9 * P9))
     b, Hll_invs = sc_rhs_and_hll(lins, buckets, lam, num_cameras,
-                                 cam_csr=cam_csr)
+                                 cam_csr=cam_csr, mesh=mesh)
     for lin, pid, Hll_inv in zip(lins, pairs.pair_ids, Hll_invs):
         # diagonal Jp_i' Jp_i at (c_i, c_i); SC coupling
         # -Jp_i' Jl_i Hll^-1 Jl_j' Jp_j at (c_i, c_j)
@@ -213,8 +224,10 @@ def sc_assemble(lins, buckets, pairs: PairStructure, lam, num_cameras,
         M = -torch.einsum("lnci,lmcj->lnmij", T, HT)  # [L,n,n,9,9]
         ar = torch.arange(n, device=pid.device)
         diag_pid_b = pid[:, ar, ar]  # [L,n]
-        H.index_add_(0, diag_pid_b.reshape(-1), D.reshape(-1, P9 * P9))
-        H.index_add_(0, pid.reshape(-1), M.reshape(-1, P9 * P9))
+        H = H + segment_sum(
+            torch.cat([D.reshape(-1, P9 * P9), M.reshape(-1, P9 * P9)]),
+            torch.cat([diag_pid_b.reshape(-1), pid.reshape(-1)]), P + 1)
+    H = all_reduce_sum(H, mesh)
     # pose damping on the diagonal blocks (linearization_sc.hpp:317-320)
     eye9 = torch.eye(P9, dtype=H.dtype, device=H.device).reshape(P9 * P9)
     H.index_add_(0, pairs.diag_pid,
@@ -305,7 +318,7 @@ def sc_diag_blocks(stage2: SCStage2, pairs: PairStructure, num_cameras):
     return torch.where(missing[:, None, None], fallback, blocks)
 
 
-def jp_gram_blockdiag(lins, buckets, lam, num_cameras):
+def jp_gram_blockdiag(lins, buckets, lam, num_cameras, mesh=None):
     """Damped Jp'Jp block diagonal = get_jacobi
     (sc/linearization_sc.hpp:244-268), as a segment sum."""
     blocks = lins[0].Jp.new_zeros((num_cameras, P9, P9))
@@ -313,11 +326,13 @@ def jp_gram_blockdiag(lins, buckets, lam, num_cameras):
         blk = torch.einsum("lnri,lnrj->lnij", lin.Jp, lin.Jp)
         blocks = blocks + segment_sum(blk.reshape(-1, P9, P9),
                                       bucket.cam_idx.reshape(-1), num_cameras)
+    blocks = all_reduce_sum(blocks, mesh)
     eye = torch.eye(P9, dtype=blocks.dtype, device=blocks.device)
     return blocks + lam.to(blocks.dtype) * eye
 
 
-def e0_matvec(lins, buckets, Hll_invs, num_cameras, x, csr=None):
+def e0_matvec(lins, buckets, Hll_invs, num_cameras, x, csr=None,
+              mesh=None):
     """E0 x = Jp' Jl Hll^-1 Jl' Jp x (sc/linearization_power_sc.hpp
     :250-272), the implicit sweep."""
     y = torch.zeros_like(x)
@@ -336,7 +351,7 @@ def e0_matvec(lins, buckets, Hll_invs, num_cameras, x, csr=None):
                                 num_cameras)
     if csr is not None:
         y = y + csr_cam_reduce(yb_rows, csr, num_cameras)
-    return y
+    return all_reduce_sum(y, mesh)
 
 
 def power_series_solve(apply_hpp_inv, apply_e0, b, order: int,
@@ -361,7 +376,7 @@ def power_series_solve(apply_hpp_inv, apply_e0, b, order: int,
 
 
 def sc_back_substitute(lins, buckets, Hll_invs, lm_ps, pose_inc,
-                       compensated: bool = False):
+                       compensated: bool = False, mesh=None):
     """Reference sc/landmark_block.hpp:409-446 back_substitute:
     dl = -Hll_lam^-1 Jl'(r + Jp dp); l_diff -= v'(0.5 v + r).
     compensated=True accumulates l_diff with error-free transforms
@@ -388,6 +403,8 @@ def sc_back_substitute(lins, buckets, Hll_invs, lm_ps, pose_inc,
         else:
             l_hi = l_hi - torch.sum(parts)
         new_lm_ps.append(lm_p + (dl_s * lin.Jl_scale).to(lm_p.dtype))
+    if mesh is not None:
+        l_hi, l_lo = all_reduce_sum(torch.stack([l_hi, l_lo]), mesh)
     return tuple(new_lm_ps), l_hi + l_lo
 
 
@@ -457,13 +474,16 @@ class SCLinearizer(LinearizerBase):
 
     def _build_rcs_index(self):
         """dense_rcs up to dense_rcs_max_cameras, bsr_rcs above it;
-        dense_rcs_max_cameras=0 disables both (the scatter assembly, or
-        PoBA's implicit sweep). Builds the stream indices and, in BSR
-        mode, the operator's index and its half-table decision."""
+        dense_rcs_max_cameras=0 or a mesh disables both (the scatter
+        assembly, or PoBA's implicit sweep). Builds the stream indices
+        and, in BSR mode, the operator's index and its half-table
+        decision."""
         opts = self.options
         N = self.num_cameras
-        self.dense_rcs = 0 < N <= opts.dense_rcs_max_cameras
-        self.bsr_rcs = not self.dense_rcs and opts.dense_rcs_max_cameras > 0
+        self.dense_rcs = (self.mesh is None
+                          and 0 < N <= opts.dense_rcs_max_cameras)
+        self.bsr_rcs = (self.mesh is None and not self.dense_rcs
+                        and opts.dense_rcs_max_cameras > 0)
         self.pair_index = self.cam_strips = self.bsr = None
         self.bsr_sym = False
         if not (self.dense_rcs or self.bsr_rcs):
@@ -487,7 +507,7 @@ class SCLinearizer(LinearizerBase):
         self.pairs = None
         if not (self.dense_rcs or self.bsr_rcs):
             self.pairs = build_pair_structure(self.bp, self.num_cameras,
-                                              self.device)
+                                              self.device, self.mesh)
         precond_type = opts.preconditioner_type
         if precond_type not in (PreconditionerType.SCHUR_JACOBI,
                                 PreconditionerType.DIAGONAL,
@@ -503,7 +523,8 @@ class SCLinearizer(LinearizerBase):
 
     def error(self, cams, lm_ps):
         return compute_error_buckets(cams, lm_ps, self.buckets,
-                                     self.robust_norm, self.huber)
+                                     self.robust_norm, self.huber,
+                                     mesh=self.mesh)
 
     def stage1(self, cams, lm_ps):
         return self._stage1_common(self.buckets, cams, lm_ps,
@@ -529,7 +550,7 @@ class SCLinearizer(LinearizerBase):
                               Hll_inv=Hll_invs, lam=lam)
         else:
             stage2 = sc_assemble(lins, self.buckets, self.pairs, lam, N,
-                                 cam_csr=self.cam_csr)
+                                 cam_csr=self.cam_csr, mesh=self.mesh)
             diag = None
 
         chol = hpp_chol = E0 = None
@@ -541,7 +562,8 @@ class SCLinearizer(LinearizerBase):
                                         device=diag.device)
             chol = chol9(diag)
         else:
-            jacobi = jp_gram_blockdiag(lins, self.buckets, lam, N)
+            jacobi = jp_gram_blockdiag(lins, self.buckets, lam, N,
+                                       mesh=self.mesh)
             hpp_chol = chol9(jacobi)
             if self.dense_rcs:
                 E0 = _dense_e0_from_h(H_dense, jacobi, lam)
@@ -579,7 +601,8 @@ class SCLinearizer(LinearizerBase):
 
                 def apply_e0(v):
                     return e0_matvec(lins, self.buckets, stage2.Hll_inv,
-                                     self.num_cameras, v, csr=csr)
+                                     self.num_cameras, v, csr=csr,
+                                     mesh=self.mesh)
 
             def precond(r):
                 # power_series_solve(v) = sum_i (Hpp^-1 E0)^i Hpp^-1 (-v);
@@ -602,7 +625,7 @@ class SCLinearizer(LinearizerBase):
               pose_scale, inc):
         new_lm_ps, l_diff = sc_back_substitute(
             lins, self.buckets, stage2.Hll_inv, lm_ps, inc,
-            compensated=self.compensated)
+            compensated=self.compensated, mesh=self.mesh)
         inc_scaled = inc * pose_scale
         q, t = lie.apply_inc_pose(cams.q, cams.t, inc_scaled[:, :6])
         intr = cams.intr + inc_scaled[:, 6:9]
@@ -627,8 +650,10 @@ class PowerSCLinearizer(SCLinearizer):
         N = self.num_cameras
         b, Hll_invs = sc_rhs_and_hll(lins, self.buckets, lam, N,
                                      cam_csr=self.cam_csr,
-                                     cam_strips=self.cam_strips)
-        hpp_chol = chol9(jp_gram_blockdiag(lins, self.buckets, lam, N))
+                                     cam_strips=self.cam_strips,
+                                     mesh=self.mesh)
+        hpp_chol = chol9(jp_gram_blockdiag(lins, self.buckets, lam, N,
+                                           mesh=self.mesh))
         E0 = None
         if self.dense_rcs:
             E0 = e0_assemble_dense(lins, self.buckets, Hll_invs,
@@ -668,7 +693,8 @@ class PowerSCLinearizer(SCLinearizer):
 
             def apply_e0(v):
                 return e0_matvec(lins, self.buckets, stage2.Hll_inv,
-                                 self.num_cameras, v, csr=csr)
+                                 self.num_cameras, v, csr=csr,
+                                 mesh=self.mesh)
 
         inc, iters = power_series_solve(apply_hpp_inv, apply_e0, stage2.b,
                                         opts.power_order,

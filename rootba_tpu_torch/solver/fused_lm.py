@@ -53,6 +53,8 @@ from rootba_tpu_torch.log.summary import (
     finish_iteration,
     finish_solve,
 )
+from rootba_tpu_torch.parallel.mesh import make_mesh
+
 TERM_RUNNING = 0
 TERM_FTOL = 1
 TERM_MAX_LAMBDA = 2
@@ -132,9 +134,11 @@ class _StageClock:
 def optimize_lm_fused(bp, options: SolverOptions,
                       summary: Optional[SolverSummary] = None, *,
                       device: torch.device, linearizer=None, state=None):
-    """Run the LM minimization on `device`. Pass `linearizer` (and a
-    starting `state`) to reuse one already built. Returns
-    (BAState, SolverSummary)."""
+    """Run the LM minimization on `device`, sharded over the mesh of
+    options.num_devices (parallel.mesh.make_mesh: none without a process
+    group) with `bp`'s rows padded to it. Pass `linearizer` (and a
+    starting `state`, sharded as its mesh) to reuse one already built.
+    Returns (BAState, SolverSummary)."""
     from rootba_tpu_torch.solver.lm import (
         BAState,
         create_linearizer,
@@ -152,9 +156,11 @@ def optimize_lm_fused(bp, options: SolverOptions,
     t_total = time.monotonic()
     dtype = torch.float64 if options.use_double else torch.float32
     if linearizer is None:
-        linearizer = create_linearizer(bp, options, dtype, device)
+        linearizer = create_linearizer(
+            bp, options, dtype, device,
+            make_mesh(options.num_devices, device))
     if state is None:
-        state = initial_state(bp, dtype, device)
+        state = initial_state(bp, dtype, device, linearizer.mesh)
     cams, lm_ps = state.cams, state.lm_ps
     summary.preprocessor_time_in_seconds = time.monotonic() - t_total
 

@@ -21,16 +21,16 @@ the block-sparse form of that system with its CG operators
 solvers (`LinBucket`, `linearize_bucket`, `scale_jl_cols`, `jp_diag2`,
 `jp_t_jp_blockdiag`, `scale_jp_cols`).
 
-Every per-camera and per-pair sum on the explicit and CSR routes adds
-in a fixed order, so it repeats bit for bit on the card: the CSR, strips
-and obs reducers and the BSR operator gather and sum; the stream
-reducers reduce each
-sub-stream's runs of one target through a fixed tree (`RunTreeIndex`,
+Every per-camera and per-pair sum adds in a fixed order, so it repeats
+bit for bit on the card: the CSR, strips and obs reducers and the BSR
+operator gather and sum; the stream reducers reduce each sub-stream's
+runs of one target through a fixed tree (`RunTreeIndex`,
 bal.bucketing.RunTree) before their one scatter-add with distinct
-targets. `segment_sum` (index_add_ with repeated targets) remains where
-the JAX package keeps its segment sum: the preconditioner blocks of the
-implicit SQUARE_ROOT mode, reduction_alg=0, SC's scatter assembly and
-the Jp gram of the power-series paths.
+targets; `segment_sum`, where the JAX package keeps its segment sum
+(the preconditioner blocks of the implicit SQUARE_ROOT mode and of the
+einsum layout, reduction_alg=0, SC's scatter assembly, the Jp gram of
+the power-series paths, every per-camera sum under a mesh), sums fixed
+blocks of each target's rows in two levels before one sorted add.
 
 Index tensors are uploaded once as int64. The stream indices address
 slot rows of a bucket's landmark tables; their fill sentinel (the
@@ -63,12 +63,15 @@ import numpy as np
 import torch
 
 from rootba_tpu_torch.core.residuals import (
+    ACC_DTYPE,
     ResidualInfo,
+    ResidualItem,
     accumulate_residual_info,
     empty_residual_info,
     join_residual_info,
 )
 from rootba_tpu_torch.ops import fold
+from rootba_tpu_torch.parallel.mesh import all_reduce_sum
 
 POSE_SIZE = 9
 
@@ -110,12 +113,48 @@ def _map_rows(f: Callable, tables: Sequence[torch.Tensor], L: int, n: int):
     return torch.cat(outs, dim=0)
 
 
+# rows per block of each level of segment_sum
+_SEG_BLOCK = 64
+
+
+def _block_sums(data: torch.Tensor, seg: torch.Tensor, num_segments: int):
+    """One level of segment_sum: the rows of each id, in their order,
+    are cut into blocks of _SEG_BLOCK rows and each block is summed by
+    index_put_ with accumulate (on the card it sorts the targets stably
+    and adds each target's rows in turn). Returns the block sums and
+    their ids in block order; blocks past the last real one are zero and
+    carry the dump id num_segments, which seg may hold too."""
+    n = seg.shape[0]
+    dev = seg.device
+    counts = torch.zeros(num_segments + 1, dtype=torch.int64,
+                         device=dev).index_add_(0, seg, torch.ones_like(seg))
+    order = torch.argsort(seg, stable=True)
+    rank = torch.empty_like(seg)
+    rank[order] = (torch.arange(n, device=dev)
+                   - (torch.cumsum(counts, 0) - counts)[seg[order]])
+    nblk = (counts + _SEG_BLOCK - 1) // _SEG_BLOCK
+    ends = torch.cumsum(nblk, 0)
+    rows = n // _SEG_BLOCK + num_segments + 2  # >= nblk.sum()
+    sums = data.new_zeros((rows,) + tuple(data.shape[1:])).index_put_(
+        ((ends - nblk)[seg] + rank // _SEG_BLOCK,), data, accumulate=True)
+    owner = torch.searchsorted(ends, torch.arange(rows, device=dev),
+                               right=True)
+    return sums, torch.clamp(owner, max=num_segments)
+
+
 def segment_sum(data: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """out[s] = sum of data rows whose seg id is s (index_add_: on the
-    card, repeated ids add in a varying order)."""
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, seg, data)
+    """out[s] = sum of data rows whose seg id is s, in a fixed order, so
+    it repeats bit for bit on the card (index_add_'s atomic adds come in
+    a varying order): two levels of _block_sums, then one sorted
+    accumulate of the block sums. No target's rows are added one after
+    another more than _SEG_BLOCK times per level, where one sorted
+    accumulate of all rows would chain a camera's tens of thousands of
+    rows (final-3068's twin) into one sequential sum."""
+    for _ in range(2):
+        data, seg = _block_sums(data, seg, num_segments)
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    return out.index_put_((seg,), data, accumulate=True)[:num_segments]
 
 
 @dataclass(frozen=True)
@@ -184,9 +223,11 @@ def _broadcast_lm(lmp_c: torch.Tensor, n: int):
 
 def compute_error_buckets(cams: CamState, lm_ps: Sequence[torch.Tensor],
                           buckets: Sequence[BucketIndex], robust_norm: int,
-                          huber_parameter: float) -> ResidualInfo:
+                          huber_parameter: float,
+                          mesh=None) -> ResidualInfo:
     """Whole-problem cost (reference bal_bundle_adjustment_helper.cpp
-    :67-109 compute_error), row-chunked per bucket."""
+    :67-109 compute_error), row-chunked per bucket; under a mesh the
+    sums over this rank's landmark rows, all-reduced."""
     from rootba_tpu_torch.ops.planar import snavely_planes
 
     info = empty_residual_info(cams.q.device)
@@ -210,7 +251,26 @@ def compute_error_buckets(cams: CamState, lm_ps: Sequence[torch.Tensor],
         for a in range(0, L, rows):
             info = join_residual_info(
                 info, err_chunk([t[a:a + rows] for t in tables]))
-    return info
+    if mesh is None:
+        return info
+    return _all_reduce_info(info, mesh)
+
+
+def _all_reduce_info(info: ResidualInfo, mesh) -> ResidualInfo:
+    """The ranks' ResidualInfo sums in one all-reduce (float64: counts
+    are exact below 2**53); numerically valid on no rank's failure."""
+    v = all_reduce_sum(torch.stack([
+        info.all.num_obs.to(ACC_DTYPE), info.all.error,
+        info.all.residual_sum, info.valid.num_obs.to(ACC_DTYPE),
+        info.valid.error, info.valid.residual_sum,
+        (~info.is_numerically_valid).to(ACC_DTYPE)]), mesh)
+
+    def item(k):
+        return ResidualItem(num_obs=v[k].to(torch.int64), error=v[k + 1],
+                            residual_sum=v[k + 2])
+
+    return ResidualInfo(all=item(0), valid=item(3),
+                        is_numerically_valid=v[6] == 0)
 
 
 # ---------------------------------------------------------------------------

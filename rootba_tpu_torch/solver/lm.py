@@ -4,13 +4,22 @@
 Port of the JAX package's `solver/lm.py` for the main path: the state
 (cameras + per-bucket landmark positions), the bucket index upload,
 the linearizer base with the host driver's stage calls, the lazy
-camera-CSR index and the SC/PoBA stage1 (`_stage1_common`),
-`create_linearizer` (SQUARE_ROOT on the flat layout, SCHUR_COMPLEMENT
-and POWER_SCHUR_COMPLEMENT in solver/explicit_sc.py), the host LM loop
-`optimize_lm` with its checkpoint/resume (utils/checkpoint.py) and
-`bundle_adjust`, which routes a problem to it or to the attempt-loop
-driver (solver/fused_lm.py), or for solver_type CERES to the host
-baselines (solver/numpy_lm.py, solver/scipy_baseline.py).
+camera-CSR index and the stage1 of the bucket layout
+(`_stage1_common`), the einsum layout's SQUARE_ROOT solver
+(`SqrtLinearizer`, solver/sqrt_qr.py), `create_linearizer` (SQUARE_ROOT
+on the flat layout, or the einsum layout when asked for and under a
+mesh; SCHUR_COMPLEMENT and POWER_SCHUR_COMPLEMENT in
+solver/explicit_sc.py), the host LM loop `optimize_lm` with its
+checkpoint/resume (utils/checkpoint.py) and `bundle_adjust`, which
+routes a problem to it or to the attempt-loop driver
+(solver/fused_lm.py), or for solver_type CERES to the host baselines
+(solver/numpy_lm.py, solver/scipy_baseline.py).
+
+Under a process group (parallel/mesh.py) `bundle_adjust` pads every
+bucket's landmark rows to the mesh, each rank's linearizer keeps its
+block of them, and the final landmarks are gathered to every rank; the
+checkpoint gathers too, rank 0 writes it, and the ranks agree that it
+exists before they resume.
 `state_from_numpy` / `state_to_numpy` carry a state across the two
 packages as numpy arrays.
 
@@ -43,6 +52,7 @@ allocations and fail again; every error propagates with its cause.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -57,10 +67,13 @@ from rootba_tpu_torch.bal.bucketing import (
 from rootba_tpu_torch.bal.problem import BalProblem, PipelineTimingSummary
 from rootba_tpu_torch.config.options import (
     OptimizedCost,
+    PreconditionerType,
     RobustNorm,
     SolverOptions,
     SolverType,
 )
+from rootba_tpu_torch.core import lie
+from rootba_tpu_torch.ops.block9 import chol9_inv, inv9_apply
 from rootba_tpu_torch.core.residuals import (
     residual_info_from_values,
     residual_info_to_host,
@@ -76,8 +89,24 @@ from rootba_tpu_torch.log.summary import (
     finish_iteration,
     finish_solve,
 )
+from rootba_tpu_torch.parallel.mesh import (
+    LandmarkMesh,
+    all_reduce_sum,
+    gather_to_host,
+    host_all_reduce,
+    make_mesh,
+    pad_rows_for_mesh,
+    shard_bucket_index,
+    shard_state,
+)
+from rootba_tpu_torch.solver import sqrt_qr
+from rootba_tpu_torch.solver.cg import pcg
 from rootba_tpu_torch.solver.fused_lm import _cost_scalar, _StageClock
-from rootba_tpu_torch.solver.linearization import BucketIndex, CamState
+from rootba_tpu_torch.solver.linearization import (
+    BucketIndex,
+    CamState,
+    compute_error_buckets,
+)
 from rootba_tpu_torch.utils import checkpoint
 
 
@@ -93,15 +122,22 @@ def _sophus_eps_sqrt(dtype: torch.dtype) -> float:
 
 
 def make_bucket_indices(bp: BucketedProblem, dtype: torch.dtype,
-                        device: torch.device) -> Tuple[BucketIndex, ...]:
-    return tuple(
-        BucketIndex(
-            obs_uv=torch.as_tensor(b.obs_uv, dtype=dtype, device=device),
-            cam_idx=torch.as_tensor(b.cam_idx.astype(np.int64),
-                                    device=device),
-            mask=torch.as_tensor(b.mask, device=device),
-            lm_mask=torch.as_tensor(b.lm_mask, device=device))
-        for b in bp.buckets)
+                        device: torch.device,
+                        mesh: Optional[LandmarkMesh] = None
+                        ) -> Tuple[BucketIndex, ...]:
+    """The buckets' index tensors on `device`; under a mesh only this
+    rank's landmark rows are uploaded."""
+    out = []
+    for b in bp.buckets:
+        h = shard_bucket_index(BucketIndex(
+            obs_uv=b.obs_uv, cam_idx=b.cam_idx.astype(np.int64),
+            mask=b.mask, lm_mask=b.lm_mask), mesh)
+        out.append(BucketIndex(
+            obs_uv=torch.as_tensor(h.obs_uv, dtype=dtype, device=device),
+            cam_idx=torch.as_tensor(h.cam_idx, device=device),
+            mask=torch.as_tensor(h.mask, device=device),
+            lm_mask=torch.as_tensor(h.lm_mask, device=device)))
+    return tuple(out)
 
 
 def state_from_numpy(arrays: Dict, dtype: torch.dtype,
@@ -128,10 +164,13 @@ def state_to_numpy(state: BAState) -> Dict:
 
 
 def initial_state(bp: BucketedProblem, dtype: torch.dtype,
-                  device: torch.device) -> BAState:
-    return state_from_numpy({"q": bp.cam_q0, "t": bp.cam_t0,
-                             "intr": bp.cam_intr0, "lm_ps": bp.lm_p0},
-                            dtype, device)
+                  device: torch.device,
+                  mesh: Optional[LandmarkMesh] = None) -> BAState:
+    """The problem's starting state (under a mesh, this rank's landmark
+    rows)."""
+    return shard_state(state_from_numpy(
+        {"q": bp.cam_q0, "t": bp.cam_t0, "intr": bp.cam_intr0,
+         "lm_ps": bp.lm_p0}, dtype, device), mesh)
 
 
 class Attempt(NamedTuple):
@@ -159,6 +198,11 @@ class LinearizerBase:
       apply(cams, lm_ps, lins, stage2, pose_scale, inc)
           -> (cams, lm_ps, l_diff)
     All run on `device`; nothing is compiled or cached between calls.
+    Under a mesh (parallel.mesh.LandmarkMesh) the buckets and the
+    landmark positions hold this rank's landmark rows, the camera CSR is
+    off (its gather would cross the ranks' rows), and every sum over
+    landmarks is all-reduced: the stages return replicated camera
+    quantities.
 
     The base adds `attempt_at`, the attempt body of both LM drivers,
     and the host driver's calls on the linearizer's own state
@@ -173,19 +217,24 @@ class LinearizerBase:
     prepare_field = "stage2_time_in_seconds"
 
     def __init__(self, bp: BucketedProblem, options: SolverOptions,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device,
+                 mesh: Optional[LandmarkMesh] = None):
         self.options = options
         self.dtype = dtype
         self.device = device
+        self.mesh = mesh
         self.num_cameras = bp.num_cameras
         self.bp = bp  # host-side structure (index builders read it)
-        self.buckets = make_bucket_indices(bp, dtype, device)
+        self.buckets = make_bucket_indices(bp, dtype, device, mesh)
         # camera-CSR gather-reduce index (replaces segment_sum scatters
         # with a fixed-order sum; see bucketing.CamCsr), uploaded on
         # first access: only the paths that reduce through it pay its
-        # host build
+        # host build. Only without a mesh: the CSR gathers slots of
+        # every rank's rows, so a mesh keeps segment sums (the JAX
+        # package's rule)
         self._cam_csr_cache = None
-        self._cam_csr_enabled = options.reduction_alg != 0
+        self._cam_csr_enabled = (mesh is None
+                                 and options.reduction_alg != 0)
         self.robust_norm = (1 if options.residual.robust_norm
                             == RobustNorm.HUBER else 0)
         self.huber = float(options.residual.huber_parameter)
@@ -226,7 +275,9 @@ class LinearizerBase:
 
     def _stage1_common(self, buckets, cams, lm_ps, csr=None):
         """Linearize all buckets in the bucket layout, Jl column
-        scaling, pose jacobi scaling (the SC/PoBA solvers' stage1)."""
+        scaling, pose jacobi scaling (the stage1 of the SC/PoBA solvers
+        and of the einsum layout); under a mesh diag2 and the failure
+        count are all-reduced."""
         from rootba_tpu_torch.solver.linearization import (
             POSE_SIZE,
             csr_cam_reduce,
@@ -256,6 +307,8 @@ class LinearizerBase:
             lins.append(lin)
         if csr is not None:
             diag2 = csr_cam_reduce(diag2_rows, csr, self.num_cameras)
+        diag2 = all_reduce_sum(diag2, self.mesh)
+        failures = all_reduce_sum(failures, self.mesh)
         if self.options.jacobi_scaling:
             pose_scale = 1.0 / (self.jacobi_eps + torch.sqrt(diag2))
         else:
@@ -364,26 +417,100 @@ class LinearizerBase:
         return a
 
 
+class SqrtLinearizer(LinearizerBase):
+    """SQUARE_ROOT solver in the einsum (bucket) layout (reference
+    solver/linearizor_qr.cpp; the JAX package's SqrtLinearizer): stage1
+    is `_stage1_common`, stage2 / the matvec / back substitution are
+    solver/sqrt_qr.py, the linear solve pcg under the JACOBI,
+    SCHUR_JACOBI or DIAGONAL block preconditioner. The layout of every
+    mesh."""
+
+    linear_solver_type = "bal_qr"
+
+    def _build(self):
+        opts = self.options
+        if opts.preconditioner_type not in (
+                PreconditionerType.JACOBI, PreconditionerType.SCHUR_JACOBI,
+                PreconditionerType.DIAGONAL):
+            raise ValueError(
+                f"preconditioner {opts.preconditioner_type} not implemented "
+                f"for the SQUARE_ROOT solver")
+        self.precond_jacobi = (opts.preconditioner_type
+                               == PreconditionerType.JACOBI)
+        self.precond_diag = (opts.preconditioner_type
+                             == PreconditionerType.DIAGONAL)
+
+    def error(self, cams, lm_ps):
+        return compute_error_buckets(cams, lm_ps, self.buckets,
+                                     self.robust_norm, self.huber,
+                                     mesh=self.mesh)
+
+    def stage1(self, cams, lm_ps):
+        return self._stage1_common(self.buckets, cams, lm_ps,
+                                   csr=self.cam_csr)
+
+    def stage2(self, lins, lam):
+        return sqrt_qr.sqrt_stage2(
+            lins, self.buckets, lam, self.num_cameras,
+            precond_jacobi=self.precond_jacobi,
+            precond_diagonal=self.precond_diag, mesh=self.mesh)
+
+    def lsolve(self, lins, stage2):
+        opts = self.options
+        csr = self.cam_csr
+
+        def matvec(x):
+            return sqrt_qr.sqrt_matvec(lins, self.buckets, stage2,
+                                       self.num_cameras, x, csr=csr,
+                                       mesh=self.mesh)
+
+        # explicit per-block inverse once per solve (ops/block9)
+        pinv = chol9_inv(stage2.precond_chol)
+        res = pcg(matvec, lambda r: inv9_apply(pinv, r), stage2.b,
+                  min_num_iterations=opts.min_linear_solver_iterations,
+                  max_num_iterations=opts.max_linear_solver_iterations,
+                  q_tolerance=opts.eta, r_tolerance=-1.0,
+                  compensated=self.compensated)
+        # we solve H(-x) = b -> negate (linearizor_base.cpp:99-101)
+        return -res.x, stage2, res.num_iterations, res.termination_type
+
+    def apply(self, cams: CamState, lm_ps, lins, stage2, pose_scale, inc):
+        new_lm_ps, l_diff = sqrt_qr.sqrt_back_substitute(
+            lins, self.buckets, stage2, lm_ps, inc,
+            compensated=self.compensated, mesh=self.mesh)
+        inc_scaled = inc * pose_scale
+        q, t = lie.apply_inc_pose(cams.q, cams.t, inc_scaled[:, :6])
+        intr = cams.intr + inc_scaled[:, 6:9]
+        return CamState(q=q, t=t, intr=intr), new_lm_ps, l_diff
+
+
 def create_linearizer(bp: BucketedProblem, options: SolverOptions,
-                      dtype: torch.dtype, device: torch.device):
+                      dtype: torch.dtype, device: torch.device,
+                      mesh: Optional[LandmarkMesh] = None):
+    """The linearizer of options.solver_type (the JAX package's
+    dispatch): SQUARE_ROOT on the flat layout without a mesh, else in
+    the einsum layout; SC and PoBA in the bucket layout."""
+    if options.solver_type == SolverType.SQUARE_ROOT:
+        if options.kernel_layout not in ("flat", "einsum"):
+            raise ValueError(
+                f"unknown kernel_layout {options.kernel_layout!r} "
+                f"(choose 'flat' or 'einsum'; the round-1 experimental "
+                f"'cm'/'planar' layouts were retired)")
+        if options.kernel_layout == "flat" and mesh is None:
+            from rootba_tpu_torch.solver.sqrt_flat import FlatSqrtLinearizer
+
+            return FlatSqrtLinearizer(bp, options, dtype, device)
+        return SqrtLinearizer(bp, options, dtype, device, mesh)
     if options.solver_type == SolverType.SCHUR_COMPLEMENT:
         from rootba_tpu_torch.solver.explicit_sc import SCLinearizer
 
-        return SCLinearizer(bp, options, dtype, device)
+        return SCLinearizer(bp, options, dtype, device, mesh)
     if options.solver_type == SolverType.POWER_SCHUR_COMPLEMENT:
         from rootba_tpu_torch.solver.explicit_sc import PowerSCLinearizer
 
-        return PowerSCLinearizer(bp, options, dtype, device)
-    if options.solver_type != SolverType.SQUARE_ROOT:
-        # CERES is bundle_adjust's host baseline, not a linearizer
-        raise ValueError(f"unknown solver type {options.solver_type}")
-    if options.kernel_layout != "flat":
-        raise NotImplementedError(
-            f"kernel_layout={options.kernel_layout!r} is not ported yet "
-            f"(ROADMAP.md, queue 1: einsum layout); use 'flat'")
-    from rootba_tpu_torch.solver.sqrt_flat import FlatSqrtLinearizer
-
-    return FlatSqrtLinearizer(bp, options, dtype, device)
+        return PowerSCLinearizer(bp, options, dtype, device, mesh)
+    # CERES is bundle_adjust's host baseline, not a linearizer
+    raise ValueError(f"unknown solver type {options.solver_type}")
 
 
 def _function_tolerance_reached(it: IterationSummary,
@@ -407,12 +534,15 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
                 device: torch.device, linearizer=None,
                 iteration_callback=None) -> Tuple[BAState, SolverSummary]:
     """The host LM minimizer (reference optimize_lm_ours,
-    bal_bundle_adjustment.cpp:249-544) on `device`.
+    bal_bundle_adjustment.cpp:249-544) on `device`, sharded over the
+    mesh of options.num_devices (parallel.mesh.make_mesh: none without a
+    process group) with `bp`'s rows padded to it.
 
-    Pass `linearizer` to reuse one already built (the solve starts from
-    the problem's initial state, or from options.checkpoint_path when
-    that file exists). `iteration_callback(it, state, summary)` fires
-    after every LM iteration; an exception in it aborts the solve.
+    Pass `linearizer` to reuse one already built (with its mesh; the
+    solve starts from the problem's initial state, or from
+    options.checkpoint_path when that file exists).
+    `iteration_callback(it, state, summary)` fires after every LM
+    iteration; an exception in it aborts the solve.
     With checkpoint_interval > 0 the state is written to
     checkpoint_path after the callback of every checkpoint_interval-th
     iteration."""
@@ -436,23 +566,33 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     summary.num_jacobian_evaluations = 0
 
     if linearizer is None:
-        linearizer = create_linearizer(bp, options, dtype, device)
+        mesh = make_mesh(options.num_devices, device)
+        if verbose and mesh is not None:
+            print(f"Sharding landmark blocks over {mesh.size} ranks")
+        linearizer = create_linearizer(bp, options, dtype, device, mesh)
+    mesh = linearizer.mesh
     linearizer.summary = summary
-    linearizer.set_state(initial_state(bp, dtype, device))
+    linearizer.set_state(initial_state(bp, dtype, device, mesh))
 
     # checkpoint/resume (the JAX package's addition; the reference has
     # no mid-solve checkpointing): the state in the solver's dtype on
-    # `device`, the damping state, the iteration counter and the log
+    # `device`, the damping state, the iteration counter and the log.
+    # Under a mesh the save gathers the landmark shards (every rank
+    # calls it, rank 0 writes) and a resume re-shards the file's state,
+    # so a file written by 1, 2, 4 or 8 ranks (one bucket layout)
+    # resumes on any of them
     resume_it = None
     ckpt_path = options.checkpoint_path
     ckpt_interval = options.checkpoint_interval
+    if ckpt_path and mesh is not None and mesh.size > 1:
+        _agree_checkpoint_exists(ckpt_path, mesh)
     if ckpt_path:
         loaded = checkpoint.load_checkpoint(ckpt_path)
         if loaded is not None:
             cq, ct, ci, lm_ps_np, lam, lambda_vee, resume_it, its = loaded
-            linearizer.set_state(state_from_numpy(
+            linearizer.set_state(shard_state(state_from_numpy(
                 {"q": cq, "t": ct, "intr": ci, "lm_ps": lm_ps_np}, dtype,
-                device))
+                device), mesh))
             summary.iterations = [checkpoint.iteration_from_dict(d)
                                   for d in its]
             if verbose:
@@ -468,7 +608,7 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
             checkpoint.save_checkpoint(
                 ckpt_path, linearizer.state, lam, lambda_vee, it,
                 [checkpoint.iteration_to_dict(s)
-                 for s in summary.iterations])
+                 for s in summary.iterations], mesh=mesh)
 
     def close_iteration(its, timer_iteration, cum=None):
         linearizer.finish_iteration()
@@ -641,6 +781,25 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
     return linearizer.state, summary
 
 
+def _agree_checkpoint_exists(path: str, mesh: LandmarkMesh) -> None:
+    """Every rank must see the checkpoint as rank 0 does: a file visible
+    on some ranks only would send them down different paths and hang
+    the collectives. The ranks' flags meet in one all-reduce, so every
+    rank learns rank 0's (the JAX package broadcasts it) and all of them
+    raise, with the JAX package's text, when any rank disagrees."""
+    flags = np.zeros(mesh.size)
+    flags[mesh.rank] = float(os.path.exists(path))
+    flags = host_all_reduce(flags, mesh) > 0
+    bad = [r for r in range(mesh.size) if flags[r] != flags[0]]
+    if bad:
+        r = mesh.rank if mesh.rank in bad else bad[0]
+        raise FileNotFoundError(
+            f"checkpoint '{path}' is visible on process 0: "
+            f"{bool(flags[0])} but on process {r}: {bool(flags[r])}; the "
+            f"checkpoint path must resolve identically on every host "
+            f"(shared filesystem or per-host copy)")
+
+
 def bundle_adjust(problem: BalProblem,
                   options: Optional[SolverOptions] = None,
                   summary: Optional[SolverSummary] = None,
@@ -648,8 +807,11 @@ def bundle_adjust(problem: BalProblem,
                   device: str | torch.device = "cuda") -> SolverSummary:
     """Solve a BalProblem in place (reference bundle_adjust_manual,
     bal_bundle_adjustment.cpp:549-...) on `device` (the card unless the
-    caller asks for the CPU). solver_type CERES runs the host baselines
-    (numpy / scipy) and touches no device."""
+    caller asks for the CPU; under a process group "cuda" is this
+    rank's card). Under a process group and options.num_devices 0 or
+    the world size, the landmark rows are sharded over the ranks and
+    every rank ends with the whole solution. solver_type CERES runs the
+    host baselines (numpy / scipy) and touches no device."""
     from rootba_tpu_torch.solver.fused_lm import optimize_lm_fused
     from rootba_tpu_torch.utils.device import resolve_device
 
@@ -680,7 +842,10 @@ def bundle_adjust(problem: BalProblem,
         return summary
     device = resolve_device(str(device))
     options.warn_inert_knobs()
-    bp = bucketize(problem, pow2_from=options.bucket_pow2_from)
+    mesh = make_mesh(options.num_devices, device)
+    bp = bucketize(problem, pow2_from=options.bucket_pow2_from,
+                   row_align=pad_rows_for_mesh(
+                       1 if mesh is None else mesh.size))
     # routing as in the JAX package: the attempt loop up to
     # fused_obs_threshold observations, the host driver above it and
     # whenever every stage is to be timed on its own
@@ -695,8 +860,11 @@ def bundle_adjust(problem: BalProblem,
                                            device=device)
     else:
         state, summary = optimize_lm(bp, options, summary, device=device)
+    # the landmark shards gathered to every rank (cameras are
+    # replicated)
     problem.lm_p[:] = scatter_landmarks(
-        bp, [p.cpu().double().numpy() for p in state.lm_ps])
+        bp, [gather_to_host(p, mesh).astype(np.float64)
+             for p in state.lm_ps])
     problem.cam_q[:] = state.cams.q.cpu().double().numpy()
     problem.cam_t[:] = state.cams.t.cpu().double().numpy()
     problem.cam_intr[:] = state.cams.intr.cpu().double().numpy()

@@ -524,6 +524,9 @@ class FlatSqrtLinearizer(LinearizerBase):
 
     def _build(self):
         opts = self.options
+        if self.mesh is not None:
+            raise ValueError("the flat layout runs unsharded; a mesh takes "
+                             "the einsum layout (create_linearizer)")
         self.precond_jacobi = (opts.preconditioner_type
                                == PreconditionerType.JACOBI)
         # scalar DIAGONAL = diag of the SCHUR_JACOBI blocks

@@ -12,14 +12,16 @@ points at an existing file.
 
 The file format is the JAX package's (FORMAT_VERSION 1, the same npz
 keys and meta JSON), so a checkpoint written by either package resumes
-in the other, given the same bucket layout (one device: rows padded to
-multiples of 8). The arrays keep the state's dtype: a float32 solve
-stores and restores float32 bits.
+in the other, given the same bucket layout (rows padded to multiples of
+8, which every mesh of 1, 2, 4 or 8 ranks keeps). The arrays keep the
+state's dtype: a float32 solve stores and restores float32 bits.
 
-Not ported: the JAX package's multi-process path (the landmark shards
-gathered to every host, process 0 alone writing, and the check that
-every process sees the same file). It belongs to the multi-device mesh
-(ROADMAP.md, queue 1: the mesh) and comes back with it.
+Under a mesh (parallel.mesh) the landmark shards are gathered to every
+rank (a collective: every rank saves) and rank 0 alone writes; the file
+holds the whole state, so it resumes on any number of ranks that keeps
+its bucket layout (1, 2, 4 or 8).
+solver/lm.optimize_lm checks that every rank sees the same file before
+it loads.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import tempfile
 from typing import List
 
 import numpy as np
+
+from rootba_tpu_torch.parallel.mesh import gather_to_host
 
 FORMAT_VERSION = 1
 
@@ -60,10 +64,13 @@ def iteration_from_dict(d: dict):
 
 
 def save_checkpoint(path: str, state, lam: float, lambda_vee: float,
-                    it: int, iteration_summaries: List[dict]) -> None:
+                    it: int, iteration_summaries: List[dict],
+                    mesh=None) -> None:
     """Atomically write the LM driver state. `state` is a BAState
     (CamState + per-bucket landmark positions [L, 3]) of tensors on any
-    device; they are written as numpy arrays of their own dtype."""
+    device; they are written as numpy arrays of their own dtype. Under
+    a mesh every rank calls this (the landmark shards are gathered) and
+    rank 0 writes."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -81,7 +88,9 @@ def save_checkpoint(path: str, state, lam: float, lambda_vee: float,
         }).encode(), dtype=np.uint8),
     }
     for i, p in enumerate(state.lm_ps):
-        arrays[f"lm_p{i}"] = host(p)
+        arrays[f"lm_p{i}"] = gather_to_host(p, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")

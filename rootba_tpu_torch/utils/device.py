@@ -8,6 +8,9 @@ never a silent fall back to the CPU.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from rootba_tpu_torch.parallel.mesh import rank_cuda_device
 
 
 def set_full_fp32_precision() -> None:
@@ -22,7 +25,8 @@ def set_full_fp32_precision() -> None:
 def resolve_device(name: str = "cuda") -> torch.device:
     """torch.device for `name` ('cuda', 'cuda:N' or 'cpu'), with the
     float32 precision settings applied. Raises when a card is asked
-    for and none is available."""
+    for and none is available. Under a process group (parallel.mesh)
+    'cuda' is this rank's card."""
     dev = torch.device(name)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (use 'cuda' or "
@@ -31,5 +35,8 @@ def resolve_device(name: str = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {name!r} requested but no CUDA device is available; "
             f"pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    if (dev.type == "cuda" and dev.index is None
+            and dist.is_available() and dist.is_initialized()):
+        dev = rank_cuda_device()
     set_full_fp32_precision()
     return dev

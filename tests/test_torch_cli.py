@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,6 +59,14 @@ for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT",
             lm_loop="host", checkpoint_path=f"ck_{{solver}}_{{method}}.npz",
             checkpoint_interval=1), device="cpu")
         assert s.final_cost.all.error < s.initial_cost.all.error, solver
+from rootba_tpu_torch.parallel import mesh
+from rootba_tpu_torch.solver import sqrt_qr
+p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
+p.filter_obs(0.1)
+s = bundle_adjust(p, SolverOptions(
+    use_double=False, verbosity_level=0, max_num_iterations=3,
+    kernel_layout="einsum", num_devices=0), device="cpu")
+assert s.final_cost.all.error < s.initial_cost.all.error, "einsum"
 for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT"):
     for gather in ("strips", "obs"):
         p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
@@ -88,6 +97,8 @@ def test_port_sources_never_import_jax():
                      re.M)
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert PORT / "parallel" / "mesh.py" in files
+    assert PORT / "solver" / "sqrt_qr.py" in files
     for f in files:
         m = pat.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
@@ -147,11 +158,9 @@ def test_cli_help_and_dump_config(capsys):
     assert 'solver_type = "SQUARE_ROOT"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--num-devices", "2"],
-                                  ["--timing-calibration-interval", "1"],
+@pytest.mark.parametrize("argv", [["--timing-calibration-interval", "1"],
                                   ["--host-fused-attempt", "false"],
-                                  ["--defer-stage-sync", "false"],
-                                  ["--num-devices", "1"]])
+                                  ["--defer-stage-sync", "false"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
     """The port's config has no options for paths it does not have, so
     such a flag is an argparse error instead of being ignored."""
@@ -161,6 +170,35 @@ def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
         run_app("test", ["--dump-config", *argv])
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_cli_num_devices(ndev, tmp_path, capsys):
+    """--num-devices is an option again: 1 dumps and solves unsharded;
+    2 without a process group raises the mesh's ValueError before any
+    solve."""
+    from rootba_tpu_torch.cli.bal import run_app
+
+    assert run_app("test", ["--dump-config", "--num-devices",
+                            str(ndev)]) == 0
+    assert f"num_devices = {ndev}" in capsys.readouterr().out
+    bal = _write_problem(tmp_path / "problem.txt")
+    argv = ["-C", str(tmp_path), "--input", str(bal), "--device", "cpu",
+            "--max-num-iterations", "2", "--num-devices", str(ndev)]
+    cwd = os.getcwd()
+    try:
+        if ndev == 1:
+            assert run_app("test", argv) == 0
+        else:
+            with pytest.raises(ValueError, match="num_devices=2 needs a "
+                                                 "process group"):
+                run_app("test", argv)
+    finally:
+        os.chdir(cwd)
+    log = tmp_path / "ba_log.json"
+    assert log.exists() == (ndev == 1)
+    if ndev == 1:
+        assert len(json.loads(log.read_text())["cost"]) == 3
 
 
 def test_config_file_keys_of_the_reference(tmp_path, capsys):
@@ -229,17 +267,39 @@ def test_cli_defaults_to_the_card(tmp_path):
 
 
 def test_unported_routes_raise(synthetic_problem):
-    """Options whose code paths are not ported yet raise, naming the
-    ROADMAP item, instead of running something else."""
+    """Every route is ported: kernel_layout="einsum", which raised until
+    the einsum layout came, now builds the einsum linearizer and solves
+    as the flat layout's implicit mode does (same CG counts, costs
+    within rel 1e-10 in float64); a layout that does not exist raises
+    ValueError with the JAX package's text instead of running something
+    else."""
     from rootba_tpu_torch.bal.bucketing import bucketize
-    from rootba_tpu_torch.config.options import SolverOptions, SolverType
-    from rootba_tpu_torch.solver.lm import create_linearizer
+    from rootba_tpu_torch.config.options import SolverOptions
+    from rootba_tpu_torch.solver.lm import (
+        SqrtLinearizer,
+        bundle_adjust,
+        create_linearizer,
+    )
 
     bp = bucketize(synthetic_problem)
     cpu = torch.device("cpu")
-    for kw in (dict(kernel_layout="einsum"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_linearizer(bp, SolverOptions(**kw), torch.float64, cpu)
+    assert isinstance(create_linearizer(
+        bp, SolverOptions(kernel_layout="einsum"), torch.float64, cpu),
+        SqrtLinearizer)
+    logs = {}
+    for kw in (dict(kernel_layout="einsum"), dict(sqrt_rcs_mode="implicit")):
+        s = bundle_adjust(synthetic_problem.copy(), SolverOptions(
+            verbosity_level=0, max_num_iterations=5, **kw), device="cpu")
+        logs[kw.popitem()[1]] = s.iterations
+    a, b = logs["einsum"], logs["implicit"]
+    assert ([i.linear_solver_iterations for i in a]
+            == [i.linear_solver_iterations for i in b])
+    np.testing.assert_allclose([i.cost.all.error for i in a],
+                               [i.cost.all.error for i in b], rtol=1e-10)
+    opts = SolverOptions()
+    opts.kernel_layout = "planar"
+    with pytest.raises(ValueError, match="unknown kernel_layout 'planar'"):
+        create_linearizer(bp, opts, torch.float64, cpu)
 
 
 @pytest.mark.parametrize("argv,symmetric", [
