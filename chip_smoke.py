@@ -261,11 +261,33 @@ def close(a, b, rtol: float, atol: float) -> bool:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain twin on the card
 
-def spd_system(N: int, Nc: int, seed: int):
+# systems above this many cameras are built on the card (spd_system):
+# numpy's A0 A0' at N = 2048 would take 12.5 TFLOP of host time
+SPD_HOST_MAX_N = 500
+
+
+def spd_system(N: int, Nc: int, seed: int, dev=None):
     """A random SPD system in the x-space [9N, 9N] layout and its padded
-    z-space form Hz[a*Nc+i, b*Nc+j] = A[i*9+a, j*9+b] (float32)."""
+    z-space form Hz[a*Nc+i, b*Nc+j] = A[i*9+a, j*9+b] (float32): (Hz, its
+    9x9 diagonal blocks, b), numpy arrays from seed; above SPD_HOST_MAX_N
+    cameras made on the card `dev` from a torch.Generator seeded with
+    seed, A symmetrized (the card's product is not), as tensors there."""
     import numpy as np
 
+    if N > SPD_HOST_MAX_N:
+        import torch
+
+        g = torch.Generator(device=dev).manual_seed(seed)
+        n = 9 * N
+        A = torch.randn(n, n, generator=g, device=dev) / n ** 0.5
+        A = A @ A.T
+        A = 0.5 * (A + A.T) + 2.0 * torch.eye(n, device=dev)
+        b = torch.randn(N, 9, generator=g, device=dev)
+        A4 = A.view(N, 9, N, 9)
+        blocks = torch.diagonal(A4, dim1=0, dim2=2).permute(2, 0, 1)
+        Hz = torch.zeros((9, Nc, 9, Nc), device=dev)
+        Hz[:, :N, :, :N] = A4.permute(1, 0, 3, 2)
+        return Hz.view(9 * Nc, 9 * Nc), blocks.contiguous(), b
     rng = np.random.default_rng(seed)
     n = 9 * N
     A0 = rng.normal(size=(n, n)) / np.sqrt(n)
@@ -355,10 +377,16 @@ def check_k2(dev, errs: dict) -> None:
 
 # K3 test systems (N, Nc), each from seed N: on both sides of k3_plan's
 # switches between the full-row cluster kernel (N <= 96), the half
-# kernel (N <= 128) and the grid kernel, trafalgar-126's size, and one
-# unpadded system (the half kernel also takes every N <= 96 here)
+# kernel (N <= 128) and the grid kernel, trafalgar-126's size, one
+# unpadded system (the half kernel also takes every N <= 96 here), and
+# the grid kernel's sizes: trafalgar-257 (Nc 384), the last N whose rows
+# all stay in shared memory (264) and the first that streams some
+# (265; unpadded too, its rows not 16-byte aligned: the 4-byte copies),
+# 400, and two that stream nearly all (1025 on Nc 1152, 2048)
 K3_SYSTEMS = ((12, 128), (49, 128), (92, 128), (93, 128), (96, 128),
-              (97, 128), (126, 128), (128, 128), (129, 256), (49, 49))
+              (97, 128), (126, 128), (128, 128), (129, 256), (49, 49),
+              (257, 384), (264, 384), (265, 384), (265, 265), (400, 512),
+              (1025, 1152), (2048, 2048))
 # A zeta test with q_tol below 2^-24 stops a float32 CG where q1 - q0
 # falls to about one ulp of q1, so two correct implementations may stop
 # one iteration apart where q's exact decrease is within float32's
@@ -437,33 +465,61 @@ def compare_k3(name: str, launch, Hz, b2, Lp, N: int, kw: dict,
             f"rtol=2e-4, atol=2e-5){tie}")
 
 
+# k3_plan is held to the kernels' own plans up to this many cameras,
+# and the grid kernel's capacity edge beyond (check_k3_plan)
+K3_PLAN_MAX_N = 2048
+
+
 def check_k3_plan() -> None:
     """k3_plan (ops/cg_dense.py) against the capacity checks of the
     cluster kernels' launches (rb_pcg_dense_cluster_plan in
-    csrc/cg_dense.cu) at every N up to MAX_NC: the same choice, and for
-    a cluster kernel the same rows per CTA and shared memory."""
+    csrc/cg_dense.cu) and the grid kernel's plan (rb_pcg_dense_grid_plan)
+    on this card's SMs at every N up to K3_PLAN_MAX_N: the same choice,
+    for a cluster kernel the same rows per CTA and shared memory, for the
+    grid kernel the same CTAs, resident and streamed rows, ring stages
+    and shared memory; and the same largest N for the grid kernel."""
     import ctypes
+
+    import torch
 
     from rootba_tpu_torch.ops import cg_dense, kernels
 
     lib = kernels.load("cg_dense")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, smem = ctypes.c_int(), ctypes.c_longlong()
+    out = (ctypes.c_int * 7)()
+
+    def grid(N):
+        ok = lib.rb_pcg_dense_grid_plan(N, sms, ctypes.addressof(out),
+                                        ctypes.addressof(smem))
+        return ((out[0], out[3], out[4], out[5], out[6], smem.value) if ok
+                else None)
+
     largest = {}
-    for N in range(1, cg_dense.MAX_NC + 1):
+    for N in range(1, K3_PLAN_MAX_N + 1):
         code = lib.rb_pcg_dense_cluster_plan(N, ctypes.addressof(rows),
                                              ctypes.addressof(smem))
         kernel = (cg_dense.PLAN_KERNELS[code]
                   if 0 <= code < len(cg_dense.PLAN_KERNELS) else str(code))
-        plan = cg_dense.k3_plan(N, N)
-        check(plan.kernel == kernel and (
-            kernel == "grid" or (plan.rows_per_cta, plan.smem_bytes)
-            == (rows.value, smem.value)),
-            f"k3_plan({N}) = {plan}; the kernel's plan: {kernel}, rows "
-            f"{rows.value}, shared memory {smem.value}")
+        plan = cg_dense.k3_plan(N, N, sms)
+        if kernel == "grid":
+            want = grid(N)
+            got = (plan.ctas, plan.rows_per_cta, plan.streamed, plan.stages,
+                   plan.stage_rows, plan.smem_bytes)
+        else:
+            want = (rows.value, smem.value)
+            got = (plan.rows_per_cta, plan.smem_bytes)
+        check(plan.kernel == kernel and got == want,
+              f"k3_plan({N}) = {plan}; the kernel's plan: {kernel} {want}")
         largest[kernel] = N
+    edge = cg_dense.grid_max_cameras(sms)
+    check(grid(edge) is not None and grid(edge + 1) is None,
+          f"grid kernel capacity: k3_plan's {edge}, the kernel's plan at "
+          f"{edge} / {edge + 1}: {grid(edge)} / {grid(edge + 1)}")
     print(f"[phase 2] k3_plan equals the cluster kernels' capacity checks "
-          f"at N = 1..{cg_dense.MAX_NC}: largest N per kernel {largest}",
-          flush=True)
+          f"and the grid kernel's plan on {sms} SMs at N = "
+          f"1..{K3_PLAN_MAX_N}: largest N per kernel {largest}; the grid "
+          f"kernel takes up to {edge} cameras", flush=True)
 
 
 def check_k3(dev, errs: dict) -> None:
@@ -481,7 +537,7 @@ def check_k3(dev, errs: dict) -> None:
 
     check_k3_plan()
     for N, Nc in K3_SYSTEMS:
-        Hz, blocks, b = spd_system(N, Nc, seed=N)
+        Hz, blocks, b = spd_system(N, Nc, seed=N, dev=dev)
         Hz = torch.as_tensor(Hz, device=dev)
         chol = chol9(torch.as_tensor(blocks, device=dev))
         bt = torch.as_tensor(b, device=dev)
@@ -489,7 +545,8 @@ def check_k3(dev, errs: dict) -> None:
         b2 = torch.zeros((9, Nc), dtype=torch.float32, device=dev)
         b2[:, :N] = bt.T
         plan = cg_dense.k3_plan(N, Nc)
-        launchers = {"pcg_dense_grid": cg_dense._launch_grid}
+        launchers = {"pcg_dense_grid": lambda *a, **k:
+                     cg_dense._launch_grid(*a, N, **k)}
         for kernel in ("cluster", "half"):
             if kernel == plan.kernel or (kernel == "half"
                                          and cg_dense.half_fits(N)):
@@ -1159,9 +1216,32 @@ def k3_row(name: str, call: tuple, errs: dict, path_errs: tuple,
     row["bound_by_real"] = real["bound_by"]
     if compare_grid:
         row.update(both("grid_ms_same_call",
-                        lambda: cg_dense._launch_grid(Hz, b2, Lp, **ckw),
+                        lambda: cg_dense._launch_grid(Hz, b2, Lp, N, **ckw),
                         20, expect=KERNEL_NAMES["pcg_dense_grid"]))
+    if plan.kernel == "grid":
+        # the plan, and the default route's loop on the same call as a
+        # yardstick: no single library call computes the whole loop
+        row.update(ctas=plan.ctas, streamed_rows=plan.streamed,
+                   stages=plan.stages, stage_rows=plan.stage_rows)
+        row["pcg_gemv_cg_iters"] = int(pcg_gemv(Hz, chol, b,
+                                                kw).num_iterations)
+        row.update(both("pcg_gemv_ms", lambda: pcg_gemv(Hz, chol, b, kw),
+                        5, 1))
     return row
+
+
+def pcg_gemv(Hz, chol, b, kw: dict):
+    """The dense route's linear solve without K3 (sqrt_flat's solve with
+    pallas_cg off): solver.cg.pcg over the z-space GEMV (torch.mv) with
+    the block-Jacobi inverse, on a recorded K3 call's inputs and CG
+    options."""
+    from rootba_tpu_torch.ops.block9 import chol9_inv, inv9_apply
+    from rootba_tpu_torch.solver.cg import pcg
+    from rootba_tpu_torch.solver.explicit_sc import sc_matvec_dense
+
+    pinv = chol9_inv(chol)
+    return pcg(lambda x: sc_matvec_dense(Hz, x),
+               lambda r: inv9_apply(pinv, r), b, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -1951,14 +2031,14 @@ def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
             if flags is None:
                 logs32[name], r = timed_path(
                     f"phase 15 {tag}", lambda: final_setup.solve(
-                        max_num_iterations=3))
+                        max_num_iterations=2))
             else:
                 # through the CLI, on the shared load's buckets and index
                 # builds (the CLI still reads the text)
                 with final_setup:
                     logs32[name], r = timed_path(
                         f"phase 15 {tag}", lambda: run_cli(
-                            final, 3, f"{tag}_f32", flags))
+                            final, 2, f"{tag}_f32", flags))
         r["launches"] = launched(tag, sqrt_k)
         r["host_index_builds_s"] = final_setup.builds_s - built
         check(spy.regimes and set(spy.regimes) == {False},
@@ -2175,7 +2255,7 @@ def final4585_phase() -> dict:
           f"{shared.load_s:.3f} s, bucketized in {shared.bucketize_s:.3f} s",
           flush=True)
 
-    # 8a: float64, default options, 2 LM iterations through
+    # 8a: float64, default options, 1 LM iteration through
     # bundle_adjust: the host LM driver, the half table and the fused-W
     # factors, whose W rows K2 builds after each slot gather; every K1
     # and K2 call held against its twin
@@ -2184,7 +2264,7 @@ def final4585_phase() -> dict:
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
             TwinCheck() as tw:
-        la = shared.solve(use_double=True, max_num_iterations=2)
+        la = shared.solve(use_double=True, max_num_iterations=1)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak_a = torch.cuda.max_memory_allocated()
@@ -2192,7 +2272,7 @@ def final4585_phase() -> dict:
                      True, "fused", True)
     counts["final4585_f64"] = (n, attempts)
     print(f"[phase 8a] final-4585 twin f64, default options (host LM "
-          f"driver, BSR half table, fused-W), 2 LM iterations with every "
+          f"driver, BSR half table, fused-W), 1 LM iteration with every "
           f"K1 and K2 call held against its twin (the times include the "
           f"checks; the host index builds {shared.builds_s:.3f} s): "
           f"{readout('final4585_f64', la, wall, peak_a, 'bundle_adjust')},"
@@ -2259,14 +2339,14 @@ def final4585_phase() -> dict:
           f"its twin ({wall:.3f} s): {tw32.report('final4585 f32')}",
           flush=True)
 
-    # 8c: float32, default options, 2 LM iterations, timed, in process
+    # 8c: float32, default options, 1 LM iteration, timed, in process
     # on the shared setup: the host LM driver, the packed table and W
     # tables, so K1 and K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        lc = shared.solve(use_double=False, max_num_iterations=2)
+        lc = shared.solve(use_double=False, max_num_iterations=1)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2274,7 +2354,7 @@ def final4585_phase() -> dict:
                      False, "tables", True)
     counts["final4585"] = (n, attempts)
     print(f"[phase 8c] final-4585 twin f32, default options in process "
-          f"(host LM driver, BSR packed table, W tables), 2 LM iterations: "
+          f"(host LM driver, BSR packed table, W tables), 1 LM iteration: "
           f"{readout('final4585_f32', lc, wall, peak, 'bundle_adjust')}, "
           f"launches {n}", flush=True)
     shared = None
@@ -2290,7 +2370,7 @@ def final4585_phase() -> dict:
 
 # LM iterations of the straight checkpoint runs, and the iteration whose
 # checkpoint the resumed runs start from
-CKPT_ITERS = {"final3068": (4, 2), "ladybug": (10, 5)}
+CKPT_ITERS = {"final3068": (3, 2), "ladybug": (10, 5)}
 
 
 def same_trajectory(what: str, got: dict, want: dict) -> None:
@@ -2989,13 +3069,38 @@ def full_run(smi, lap, walls, dev, t0) -> int:
           f"iterations: cost {on['initial_cost']:.6f} -> "
           f"{on['final_cost']:.6f}, CG iterations {on['cg_iters']}",
           flush=True)
+    # timed beside phase 4's default route (pcg + GEMV) over the same
+    # first three LM iterations, and held to its costs
+    on_log = run_cli(traf, 3, "trafalgar_on_timed", K3_ON)
+    per_lm = {}
+    for what, lg in (("pallas_cg on (grid K3)", on_log),
+                     ("default route (phase 4)", traf_log)):
+        n = len(on_log["iteration_time"]) - 1
+        per_lm[what] = (sum(lg["iteration_time"][1:n + 1]) / n,
+                        sum(lg["solve_reduced_system_time"][1:n + 1]) / n,
+                        lg["linear_solver_iterations"][1:n + 1])
+    n = len(on_log["cost"])
+    rel = max(abs(x - y) / abs(y) for x, y in zip(on_log["cost"],
+                                                  traf_log["cost"][:n]))
+    check(on_log["step_is_successful"] == traf_log["step_is_successful"][:n]
+          and rel < 1e-4,
+          f"trafalgar pallas_cg on: costs {on_log['cost']} (accepted "
+          f"{on_log['step_is_successful']}) against the default route's "
+          f"{traf_log['cost'][:n]}: rel {rel}")
+    print(f"[phase 4b] trafalgar-257 twin f32, first {n - 1} LM iterations, "
+          f"s per LM iteration / linear solve per LM iteration / CG "
+          f"iterations: " + "; ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.5f} / {v[2]}"
+              for k, v in per_lm.items())
+          + f"; costs within rel {rel:.2e} of the default route's (tol "
+          f"1e-4)", flush=True)
 
     lap("phase 4b")
 
     small_cross_check()
     lap("phase 5")
 
-    # phase 7: the final-3068 twin, f32, default options, 5 LM
+    # phase 7: the final-3068 twin, f32, default options, 3 LM
     # iterations: above dense_rcs_max_cameras, so BSR mode with the
     # packed table; host-timed, launch counts set to 0 just before
     final = write_twin("final3068")
@@ -3004,7 +3109,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     kernels.reset_launches()
     t = time.monotonic()
     with RouteSpy() as spy:
-        fl = run_cli(final, 5, "final3068_timed")
+        fl = run_cli(final, 3, "final3068_timed")
     wall = time.monotonic() - t
     n7 = dict(kernels.LAUNCHES)
     peak7 = torch.cuda.max_memory_allocated()
@@ -3018,7 +3123,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
         check((n7[k] > 0) == want, f"final3068: kernel {k} launched "
                                    f"{n7[k]} times {n7}")
     f_it = sum(fs["iteration_s"]) / len(fs["iteration_s"])
-    print(f"[phase 7] final-3068 twin f32 (BSR, packed table), 5 LM "
+    print(f"[phase 7] final-3068 twin f32 (BSR, packed table), 3 LM "
           f"iterations: {f_it:.4f} s per LM iteration (iteration times "
           f"{[round(x, 4) for x in fs['iteration_s']]}), CLI wall "
           f"{wall:.3f} s, minimizer {fs['minimizer_s']:.3f} s, costs "
@@ -3027,38 +3132,45 @@ def full_run(smi, lap, walls, dev, t0) -> int:
           f"{fs['stage_s']}, launches {n7}, peak device memory "
           f"{peak7 / 2**20:.1f} MiB ({held / 2**20:.1f} MiB of it held "
           f"by this script before the solve)", flush=True)
+    # the twin loaded once for the in-process solves from here on
+    # (phases 7-11, 15-16 and 6's final-3068 paths)
+    final_setup = SharedSetup(final)
+    print(f"[phase 7] final-3068 twin loaded in {final_setup.load_s:.3f} s, "
+          f"bucketized in {final_setup.bucketize_s:.3f} s (shared by the "
+          f"in-process solves of phases 7-11, 15-16 and 6)", flush=True)
     # K1 and K2 held against their twins at this path's own shapes (pair
     # sub-streams and buckets up to width 1024), in an untimed solve
     with TwinCheck() as tw32:
-        run_cli(final, 1, "final3068_twins")
-    print(f"[phase 7] final-3068 twin f32, 1 untimed LM iteration with "
-          f"every kernel call held against its twin: "
+        final_setup.solve(max_num_iterations=1)
+    print(f"[phase 7] final-3068 twin f32, 1 untimed LM iteration in "
+          f"process with every kernel call held against its twin: "
           f"{tw32.report('final3068 f32')}", flush=True)
     for k, st in tw32.stats.items():
         errs[k] = max(errs[k], st["max_abs_err"])
 
     lap("phase 7")
 
-    # phase 7b: the same twin in f64, 3 LM iterations, in BSR mode with
-    # the packed table, with the half table, and in dense mode: the same
-    # accept/reject flags and costs to rel 1e-8 between every two; the
-    # BSR packed run holds every K1/K2 call against its twin
-    f64_modes = {"bsr": ((), {False}),
-                 "bsr_sym": (("--bsr-pack-max-gb", "0"), {True}),
-                 "dense": (("--dense-rcs-max-cameras", "4096"), set())}
+    # phase 7b: the same twin in f64, 2 LM iterations in process on the
+    # shared load, in BSR mode with the packed table, with the half table,
+    # and in dense mode: the same accept/reject flags and costs to rel
+    # 1e-8 between every two; the BSR packed run holds every K1/K2 call
+    # against its twin
+    f64_modes = {"bsr": ({}, {False}),
+                 "bsr_sym": (dict(bsr_pack_max_gb=0.0), {True}),
+                 "dense": (dict(dense_rcs_max_cameras=4096), set())}
     f64 = {}
     for mode, (extra, regimes) in f64_modes.items():
         torch.cuda.reset_peak_memory_stats()
         t = time.monotonic()
         with RouteSpy() as spy, (TwinCheck() if mode == "bsr"
                                  else contextlib.nullcontext()) as tw:
-            lg = run_cli(final, 3, f"final3068_f64_{mode}", extra,
-                         use_double=True)
+            lg = final_setup.solve(use_double=True, max_num_iterations=2,
+                                   **extra)
         wall = time.monotonic() - t
         if tw is not None:
             tw64 = tw
             print(f"[phase 7b] final-3068 twin f64 {mode}, every kernel "
-                  f"call held against its twin (so its CLI wall is not "
+                  f"call held against its twin (so its wall is not "
                   f"comparable): {tw.report('final3068 f64')}", flush=True)
         check(set(spy.regimes) == regimes
               and (not regimes or len(spy.regimes)
@@ -3067,10 +3179,10 @@ def full_run(smi, lap, walls, dev, t0) -> int:
               f"{spy.regimes}")
         summarize_log(lg, f"final3068_f64_{mode}")
         f64[mode] = lg
-        print(f"[phase 7b] final-3068 twin f64 {mode}, 3 LM iterations: "
+        print(f"[phase 7b] final-3068 twin f64 {mode}, 2 LM iterations: "
               f"costs {lg['cost']}, accepted {lg['step_is_successful']}, "
-              f"CG iterations {lg['linear_solver_iterations'][1:]}, CLI "
-              f"wall {wall:.3f} s, peak device memory "
+              f"CG iterations {lg['linear_solver_iterations'][1:]}, "
+              f"bundle_adjust wall {wall:.3f} s, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
               flush=True)
     names = list(f64)
@@ -3085,7 +3197,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
                   f"{f64[b]['step_is_successful']}, costs rel {rel})")
             print(f"[phase 7b] {a} vs {b}: identical accept/reject, costs "
                   f"within rel {rel:.2e} (tol 1e-8)", flush=True)
-    # phase 7's timed f32 BSR solve over the first 3 iterations against
+    # phase 7's timed f32 BSR solve over the first 2 iterations against
     # an f32 solve with the implicit operator (no reduced camera system,
     # so none of BSR mode's code) at rel 1e-4 (phase 5's f32 tolerance),
     # and against the f64 BSR solve at rel 2e-3 (the f32 CG-amplified
@@ -3093,12 +3205,12 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     # mode, the implicit one too, sits up to 1.55e-3 from f64 (PERF.md,
     # PR 4 call 4); the same accept/reject flags in each pair
     with RouteSpy() as spy:
-        imp = run_cli(final, 3, "final3068_f32_implicit",
-                      ("--sqrt-rcs-mode", "implicit"))
+        imp = final_setup.solve(max_num_iterations=2,
+                                sqrt_rcs_mode="implicit")
     check(not spy.regimes, f"final3068 f32 implicit: BSR linear solves "
                            f"{spy.regimes}")
     summarize_log(imp, "final3068_f32_implicit")
-    print(f"[phase 7b] final-3068 twin f32 implicit, 3 LM iterations: "
+    print(f"[phase 7b] final-3068 twin f32 implicit, 2 LM iterations: "
           f"costs {imp['cost']}, CG iterations "
           f"{imp['linear_solver_iterations'][1:]}", flush=True)
     for what, ref, tol in (("f32 implicit", imp, 1e-4),
@@ -3118,10 +3230,6 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     lap("phase 7b")
 
     # phase 9: stage1 and stage2 repeat bit for bit on the card
-    final_setup = SharedSetup(final)
-    print(f"[phase 9] final-3068 twin loaded in {final_setup.load_s:.3f} s, "
-          f"bucketized in {final_setup.bucketize_s:.3f} s (shared by phases "
-          f"9-11 and the SC/PoBA paths of phase 6)", flush=True)
     determinism_phase(final_setup, traf)
     lap("phase 9")
 
@@ -3277,6 +3385,9 @@ def full_run(smi, lap, walls, dev, t0) -> int:
                        mid_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_grid", rec_on.largest["pcg_dense"], errs,
                        on_k3, compare_grid=False))
+    rows[-1]["trafalgar_per_lm_iteration_s"] = {
+        k: dict(iteration=v[0], linear_solve=v[1], cg_iters=v[2])
+        for k, v in per_lm.items()}
     # launches and summed device time per LM attempt, from each path's
     # counted solve; phase 8's final-4585 runs (8c in f32, 8a in f64)
     # add their launches per attempt (counted, not traced)

@@ -15,13 +15,16 @@ shared memory of one thread-block cluster of 16 CTAs: the full-row
 kernel ("cluster") the real 9N x 9N rows while a CTA's slab fits in
 227 KB, the half kernel ("half") only the upper triangle of the
 symmetric system, up to 128 cameras; the grid kernel (a cooperative
-launch) takes the larger systems, up to MAX_NC lanes. A refused launch
-of any raises.
+launch of one CTA per SM) takes the larger systems: it deals the real
+lanes and their rows over the SMs, holds the rows in shared memory
+where they fit (up to 264 cameras on 132 SMs) and streams the rest
+every product, up to 2100 cameras (`grid_plan`). A refused launch of
+any raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,9 +40,6 @@ from rootba_tpu_torch.solver.cg import (
 D = 9
 # shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-# the grid kernel keeps six [M] vectors in each block's shared memory:
-# 6 * 9 * 1024 * 4 B = 221 KB
-MAX_NC = 1024
 # The cluster kernel's capacity, as csrc/cg_dense.cu's cluster_plan has
 # it (the card test holds k3_plan equal to rb_pcg_dense_cluster_plan):
 # CTAs in its cluster (kCluster, a non-portable size on the H100)
@@ -56,6 +56,21 @@ HALF_MAX_LANES = 128
 HALF_MAX_ROWS_PER_CTA = 72
 # rb_pcg_dense_cluster_plan's answer -> the kernel k3_plan names
 PLAN_KERNELS = ("grid", "cluster", "half")
+# The grid kernel's plan, as csrc/cg_dense.cu's grid_plan has it (the
+# card test holds k3_plan equal to rb_pcg_dense_grid_plan): one CTA per
+# SM of the H100 SXM, at most one per camera
+GRID_CTAS = 132
+# camera lanes per CTA, one thread each of its warp 0 (kGMaxLanes)
+GRID_MAX_LANES = 32
+# warps per CTA (kGWarps): one row sum each per row
+GRID_WARPS = 8
+# bytes of streamed rows per ring stage (kGStageBytes; 1 to
+# GRID_MAX_STAGE_ROWS rows) and in flight per CTA (kGRingBytes; 2 to
+# GRID_MAX_STAGES stages)
+GRID_STAGE_BYTES = 32 * 1024
+GRID_MAX_STAGE_ROWS = 4
+GRID_RING_BYTES = 64 * 1024
+GRID_MAX_STAGES = 8
 # each kernel's entry in csrc/cg_dense.cu
 ENTRIES = {"grid": "rb_pcg_dense_f32", "cluster": "rb_pcg_dense_cluster_f32",
            "half": "rb_pcg_dense_half_f32"}
@@ -64,8 +79,12 @@ ENTRIES = {"grid": "rb_pcg_dense_f32", "cluster": "rb_pcg_dense_cluster_f32",
 class K3Plan(NamedTuple):
     kernel: str        # "cluster", "half" or "grid"
     cluster: int       # CTAs in the cluster (0: the grid kernel)
-    rows_per_cta: int  # row slots of Hz resident in each CTA (0: grid)
+    rows_per_cta: int  # rows of Hz resident in each CTA (grid: at most)
     smem_bytes: int    # dynamic shared memory per block
+    ctas: int = CLUSTER  # CTAs of the launch
+    streamed: int = 0  # rows streamed per product by the largest CTA
+    stages: int = 0    # the grid kernel's ring stages ...
+    stage_rows: int = 0  # ... of this many rows each
 
 
 def cluster_smem_bytes(N: int, rows_per_cta: int) -> int:
@@ -121,12 +140,83 @@ def half_fits(N: int) -> bool:
             and half_smem_bytes(N, pairs) <= SMEM_LIMIT)
 
 
-def k3_plan(N: int, Nc: int) -> K3Plan:
+def grid_lanes(N: int) -> int:
+    """Lanes per feature plane of the grid kernel's layout: N rounded up
+    to 4 (grid_lanes in csrc/cg_dense.cu)."""
+    return (N + 3) // 4 * 4
+
+
+def grid_plan(N: int, sms: int = GRID_CTAS) -> Optional[K3Plan]:
+    """The grid kernel's plan for N cameras on `sms` SMs (grid_plan in
+    csrc/cg_dense.cu), None where it does not take N. G = min(sms, N)
+    CTAs (1 for N = 0); the largest holds L = ceil(N / G) lanes and their
+    R = 9 L rows of ld = 9 grid_lanes(N) floats. Its shared memory: the
+    ring's mbarriers (2 GRID_MAX_STAGES floats), v (ld), the 8 warps'
+    row sums and the row sums (9 R) and 8 scalars, then row slots of ld
+    floats: all R rows where they fit in 227 KB; else the ring's stages
+    (of GRID_STAGE_BYTES of rows, 1 to GRID_MAX_STAGE_ROWS; as many as
+    GRID_RING_BYTES holds, 2 to GRID_MAX_STAGES, at most one per group
+    of streamed rows) and as many resident rows as the rest holds, the
+    other rows streamed every product."""
+    if N < 0 or sms < 1:
+        return None
+    G = max(1, min(sms, N))
+    L = -(-N // G)
+    R = 9 * L
+    ld = 9 * grid_lanes(N)
+    cap = SMEM_LIMIT // 4
+    fixed = 2 * GRID_MAX_STAGES + ld + (GRID_WARPS + 1) * R + 8
+    resident, streamed, stages, sr = R, 0, 0, 0
+    if fixed + R * ld > cap:
+        sr = min(max(GRID_STAGE_BYTES // (4 * ld), 1), GRID_MAX_STAGE_ROWS)
+        st = min(max(GRID_RING_BYTES // (4 * ld * sr), 2), GRID_MAX_STAGES)
+        fit = (cap - fixed) // ld
+        if fixed > cap or fit < st * sr:
+            return None
+        resident = fit - st * sr
+        streamed = R - resident
+        stages = min(st, -(-streamed // sr))
+    smem = 4 * (fixed + (resident + stages * sr) * ld)
+    if L > GRID_MAX_LANES or smem > SMEM_LIMIT:
+        return None
+    return K3Plan("grid", 0, resident, smem, G, streamed, stages, sr)
+
+
+def _grid_plan_checked(N: int, sms: int) -> K3Plan:
+    """grid_plan, raising where the grid kernel does not take N."""
+    plan = grid_plan(N, sms)
+    if plan is None:
+        raise ValueError(
+            f"pcg_dense: {N} cameras > {grid_max_cameras(sms)}, the grid "
+            f"kernel's capacity on {sms} SMs (its vector and two row "
+            f"stages fill a CTA's shared memory)")
+    return plan
+
+
+def grid_max_cameras(sms: int = GRID_CTAS) -> int:
+    """The most cameras the grid kernel takes on `sms` SMs (2100 on
+    132): from there on v and the ring's two row stages no longer fit
+    one CTA's shared memory."""
+    n = 1
+    while grid_plan(n + 1, sms) is not None:
+        n += 1
+    return n
+
+
+def grid_work_floats(N: int, ctas: int) -> int:
+    """Floats of the grid kernel's work buffer (grid_work_floats in
+    csrc/cg_dense.cu): the gathered z, p and x (9 grid_lanes(N) each),
+    two float4 partials per CTA and the exchanges' counter (4 floats)."""
+    return 3 * 9 * grid_lanes(N) + 8 * ctas + 4
+
+
+def k3_plan(N: int, Nc: int, sms: int = GRID_CTAS) -> K3Plan:
     """Which K3 kernel solves an N-camera system on Nc lanes: the
     full-row cluster kernel while its lanes, rows and shared memory hold
     the system (cluster_plan in csrc/cg_dense.cu), else the half kernel
     while its lanes and shared memory do (half_plan), else the grid
-    kernel up to MAX_NC lanes; raises above."""
+    kernel on `sms` SMs (grid_plan); raises above the grid kernel's
+    capacity."""
     if not 0 <= N <= Nc:
         raise ValueError(f"k3_plan: needs 0 <= N <= Nc, got N={N}, Nc={Nc}")
     rows = -(-9 * N // CLUSTER)
@@ -137,10 +227,7 @@ def k3_plan(N: int, Nc: int) -> K3Plan:
     if half_fits(N):
         pairs = half_pairs_per_cta(N)
         return K3Plan("half", CLUSTER, 2 * pairs, half_smem_bytes(N, pairs))
-    if Nc > MAX_NC:
-        raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
-                         f"grid kernel's shared-memory limit)")
-    return K3Plan("grid", 0, 0, 4 * (6 * 9 * Nc + 33))
+    return _grid_plan_checked(N, sms)
 
 
 def chol_planes(chol: torch.Tensor, Nc: int) -> torch.Tensor:
@@ -258,22 +345,22 @@ def _launch_in_cluster(kernel, Hz, b2, Lp, N, *, min_iters, max_iters,
     return x2, stats
 
 
-def _launch_grid(Hz, b2, Lp, *, min_iters, max_iters, q_tol, r_tol,
+def _launch_grid(Hz, b2, Lp, N, *, min_iters, max_iters, q_tol, r_tol,
                  reset_period):
-    """The grid kernel on every lane of the system."""
-    M = Hz.shape[0]
-    Nc = M // D
-    if Nc > MAX_NC:
-        raise ValueError(f"pcg_dense: {Nc} camera lanes > {MAX_NC} (the "
-                         f"grid kernel's shared-memory limit)")
+    """The grid kernel on N real cameras of the Nc-lane system, one CTA
+    per SM of Hz's card."""
+    Nc = Hz.shape[0] // D
+    sms = torch.cuda.get_device_properties(Hz.device).multi_processor_count
+    plan = _grid_plan_checked(N, sms)
     lib = kernels.load("cg_dense")
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
-    work = torch.empty(3 * M, dtype=torch.float32, device=Hz.device)
+    work = torch.empty(grid_work_floats(N, plan.ctas), dtype=torch.float32,
+                       device=Hz.device)
     kernels.check(getattr(lib, ENTRIES["grid"])(
         Hz.data_ptr(), b2.data_ptr(), Lp.data_ptr(), x2.data_ptr(),
-        stats.data_ptr(), work.data_ptr(), M, Nc, max_iters, min_iters,
-        q_tol, r_tol, reset_period, kernels.stream_ptr(Hz)),
+        stats.data_ptr(), work.data_ptr(), work.numel(), N, Nc, max_iters,
+        min_iters, q_tol, r_tol, reset_period, kernels.stream_ptr(Hz)),
         "pcg_dense_grid")
     kernels.LAUNCHES["pcg_dense_grid"] += 1
     return x2, stats
@@ -283,7 +370,7 @@ def _launch(Hz, b2, Lp, N, **kw):
     """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes."""
     plan = k3_plan(N, Hz.shape[0] // D)
     if plan.kernel == "grid":
-        return _launch_grid(Hz, b2, Lp, **kw)
+        return _launch_grid(Hz, b2, Lp, N, **kw)
     return _launch_in_cluster(plan.kernel, Hz, b2, Lp, N, **kw)
 
 

@@ -63,8 +63,9 @@ _SIGNATURES = {
         "rb_w_build_f64": (_P, _P, _P, _LL, _P),
     },
     "cg_dense": {
-        "rb_pcg_dense_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                             _F, _I, _P),
+        "rb_pcg_dense_f32": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                             _F, _F, _I, _P),
+        "rb_pcg_dense_grid_plan": (_I, _I, _P, _P),
         "rb_pcg_dense_cluster_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _F, _F, _I, _P),
         "rb_pcg_dense_half_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

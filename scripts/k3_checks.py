@@ -114,7 +114,7 @@ def main() -> int:
         names += ["half"] if cg_dense.half_fits(N) else []
         for k in range(8):
             seed = N + 1000 * k
-            Hz, blocks, b = cs.spd_system(N, Nc, seed=seed)
+            Hz, blocks, b = cs.spd_system(N, Nc, seed=seed, dev=dev)
             Hz = torch.as_tensor(Hz, device=dev)
             Lp = cg_dense.chol_planes(chol9(torch.as_tensor(blocks,
                                                             device=dev)), Nc)
@@ -126,7 +126,7 @@ def main() -> int:
                 kw = dict(min_iters=0, max_iters=200, q_tol=1e-8,
                           r_tol=-1.0, reset_period=period)
                 its = [int(cg_dense.pcg_dense_plain(Hz, b2, Lp, **kw)[1][0]),
-                       int(cg_dense._launch_grid(Hz, b2, Lp, **kw)[1][0])]
+                       int(cg_dense._launch_grid(Hz, b2, Lp, N, **kw)[1][0])]
                 for name in names[1:]:
                     its.append(int(cg_dense._launch_in_cluster(
                         name, Hz, b2, Lp, N, **kw)[1][0]))

@@ -7,9 +7,10 @@ OLD_CHECKOUT is another checkout of the repository (say, the parent
 commit, unpacked with `git archive`). Its CUDA sources are built by its
 own ops/kernels.py into its own build/ directory. The script records
 the main path's inputs with chip_smoke.py's Recorder -- the K3 call
-with the most CG iterations of the ladybug-49 twin (20 LM iterations)
-and of the trafalgar-126 twin (5), and the trafalgar-257 twin's largest
-K1 call -- and times the old and this tree's kernels on them in turns
+with the most CG iterations of the ladybug-49 twin (20 LM iterations),
+of the trafalgar-126 twin (5) and of the trafalgar-257 twin with
+pallas_cg="on" (3: the grid kernel), and the trafalgar-257 twin's
+largest K1 call -- and times the old and this tree's kernels on them in turns
 (old, new, new, old) by profiler device time (chip_smoke.traced_ms: the
 kernel once per call in the trace). Each tree's K3 is the kernel its own
 capacity check (rb_pcg_dense_cluster_plan) chooses. K1 runs in f32 (the
@@ -131,8 +132,11 @@ def main() -> int:
     old_cost = json.loads(subprocess.run(
         [sys.executable, "-c", OLD_T126.format(root=str(old_root))],
         check=True, capture_output=True, text=True).stdout.splitlines()[-1])
+    traf = cs.write_twin("trafalgar")
     with cs.Recorder() as rec_t:
-        cs.run_cli(cs.write_twin("trafalgar"), 1, "ab_trafalgar")
+        cs.run_cli(traf, 1, "ab_trafalgar")
+    with cs.Recorder() as rec_on:
+        cs.run_cli(traf, 3, "ab_trafalgar_on", cs.K3_ON)
     stream = torch.cuda.current_stream().cuda_stream
     res = {"card": cs.smi_line(), "order": ["old", "new", "new", "old"]}
 
@@ -157,7 +161,8 @@ def main() -> int:
             ms=[timed(k, fns[k], "outer81_fold_kernel") for k in res["order"]])
 
     # K3 at the call with the most CG iterations of each path
-    for tag, r in (("k3", rec), ("k3_trafalgar126", rec_m)):
+    for tag, r in (("k3", rec), ("k3_trafalgar126", rec_m),
+                   ("k3_trafalgar_on", rec_on)):
         res[tag] = k3_ab(old_cg, r.largest["pcg_dense"], res["order"],
                          stream)
     res["trafalgar126_final_cost"] = {"old": old_cost[-1],

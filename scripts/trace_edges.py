@@ -56,8 +56,8 @@ def main() -> int:
         kw = dict(min_iters=0, max_iters=iters, q_tol=float("-inf"),
                   r_tol=-1.0, reset_period=10)
         if kernel == "grid":
-            fn = (lambda Hz=Hz, b2=b2, Lp=Lp, kw=kw:
-                  cg_dense._launch_grid(Hz, b2, Lp, **kw))
+            fn = (lambda Hz=Hz, b2=b2, Lp=Lp, kw=kw, N=N:
+                  cg_dense._launch_grid(Hz, b2, Lp, N, **kw))
         else:
             fn = (lambda Hz=Hz, b2=b2, Lp=Lp, kw=kw, N=N, kernel=kernel:
                   cg_dense._launch_in_cluster(kernel, Hz, b2, Lp, N, **kw))

@@ -6,7 +6,9 @@ each CUDA kernel against its twin.
 K1 fold_plain      vs outer81_fold_pallas / _outer81_fold
 K2 w_build_plain   vs w_build_table (n <= 16) / the elementwise chain
 K3 pcg_dense_plain vs pcg_dense_vmem / solver.cg.pcg, on padded and
-   unpadded systems; k3_plan, the size switch between K3's two kernels
+   unpadded systems, and at a grid-sized system; k3_plan, the size
+   switches between K3's three kernels; plain models of the half and
+   grid kernels' deals and products
 
 The card-only test runs on a machine without JAX too (JAX is imported
 inside the tests that compare with it):
@@ -201,18 +203,22 @@ def test_pcg_dense_zero_rhs_and_padding():
     (100, 128, "half", 64),
     (126, 128, "half", 72),      # trafalgar-126
     (128, 128, "half", 72),      # the K3 gate's largest system
-    (129, 256, "grid", 0),
+    (129, 256, "grid", 9),
     (0, 128, "grid", 0),
-    (300, 1024, "grid", 0),      # pallas_cg="on" up to MAX_NC
+    (300, 1024, "grid", 14),     # past the grid kernel's on-chip edge
+    (1025, 1152, "grid", 3),     # above 1,024 lanes
+    (2048, 2048, "grid", 0),     # dense mode's largest system
 ])
 def test_k3_plan(N, Nc, kernel, rows):
     """K3's size switches: the full-row cluster kernel (16 CTAs) while a
     CTA's slab of ceil(9N / 16) real rows, its vectors and Lp fit in 227
     KB of shared memory; then the half kernel (16 CTAs, 2 pairs_per
     row slots of the upper triangle each) up to 128 cameras; else the
-    grid kernel. One camera more moves N = 0, 96 and 128 to another
-    kernel. (The card test holds k3_plan equal to the kernel's own
-    capacity checks.)"""
+    grid kernel: one CTA per SM (132), each with ceil(N / 132) lanes and
+    their 9 rows, `rows` of them resident and the rest streamed through
+    its ring's stages. One camera more moves N = 0, 96 and 128 to another
+    kernel.
+    (The card test holds k3_plan equal to the kernels' own plans.)"""
     plan = cg_dense.k3_plan(N, Nc)
     assert (plan.kernel, plan.rows_per_cta) == (kernel, rows)
     assert plan.cluster == (0 if kernel == "grid" else cg_dense.CLUSTER)
@@ -229,6 +235,12 @@ def test_k3_plan(N, Nc, kernel, rows):
         assert plan.smem_bytes == cg_dense.half_smem_bytes(N, rows // 2)
     else:
         assert not full_fits and not cg_dense.half_fits(N)
+        # CTAs, streamed rows, ring stages and their rows (the largest
+        # CTA)
+        assert (plan.ctas, plan.streamed, plan.stages, plan.stage_rows) == {
+            129: (129, 0, 0, 0), 0: (1, 0, 0, 0), 300: (132, 13, 2, 3),
+            1025: (132, 69, 2, 1), 2048: (132, 144, 2, 1)}[N]
+        assert rows + plan.streamed == 9 * -(-N // plan.ctas)
     if N + 1 <= Nc:
         nxt = cg_dense.k3_plan(N + 1, Nc)
         assert (nxt.kernel != kernel) == (N in (0, 96, 128))
@@ -388,9 +400,189 @@ def test_half_product_model_matches_mv(N):
             assert bool(((y[0].double() - mv).abs() <= 2 * tol * scale).all())
 
 
+def _grid_deal(N, sms=cg_dense.GRID_CTAS):
+    """The grid kernel's deal (csrc/cg_dense.cu: pcg_dense_kernel's
+    prologue, grid_copy_local, grid_fetch): per CTA t, its first lane
+    lo = t N / G and lane count, its local rows rr = f nl + (j - lo) as
+    (f, j), how many of them are resident (all where they fit the
+    resident + stages * stage_rows row slots), and the stages S of its
+    ring (at most one per group of stage_rows streamed rows)."""
+    plan = cg_dense.grid_plan(N, sms)
+    G = plan.ctas
+    slots = plan.rows_per_cta + plan.stages * plan.stage_rows
+    ctas = []
+    for t in range(G):
+        lo, hi = t * N // G, (t + 1) * N // G
+        nl = hi - lo
+        rows = [(rr // nl, lo + rr % nl) for rr in range(9 * nl)]
+        res = len(rows) if len(rows) <= slots else plan.rows_per_cta
+        groups = -(-(len(rows) - res) // plan.stage_rows) if res < len(
+            rows) else 0
+        ctas.append((lo, nl, rows, res, min(groups, plan.stages)))
+    return plan, ctas
+
+
+@pytest.mark.parametrize("N", [129, 200, 257, 264, 265, 300, 400, 1025,
+                               2048])
+def test_grid_deal_covers_rows_and_lanes(N):
+    """Every camera lane belongs to exactly one CTA, in order, and every
+    real row f Np + j (f < 9, j < N) to the CTA that owns lane j, exactly
+    once; the CTAs' lane counts differ by at most one and stay within a
+    warp; a CTA streams only where its rows overflow the row slots, then
+    keeps the plan's resident rows and at most the plan's stages; the
+    largest CTA streams the plan's rows; the shared memory holds the
+    ring's mbarriers, v, the row slots, the warps' row sums, the rows'
+    sums and 8 scalars; and
+    the ring's fetches bring every streamed row once per product, in
+    groups of at most stage_rows rows, one group per stage fill."""
+    plan, ctas = _grid_deal(N)
+    lanes, rows = [], []
+    for lo, nl, rr, res, S in ctas:
+        lanes += range(lo, lo + nl)
+        rows += [f * N + j for f, j in rr]
+        assert all(lo <= j < lo + nl for _, j in rr)
+        if res < len(rr):
+            assert res == plan.rows_per_cta and 1 <= S <= plan.stages
+        else:
+            assert S == 0 and res <= (plan.rows_per_cta
+                                      + plan.stages * plan.stage_rows)
+    assert lanes == list(range(N))
+    assert sorted(rows) == list(range(9 * N))
+    counts = {nl for _, nl, _, _, _ in ctas}
+    assert max(counts) - min(counts) <= 1
+    assert max(counts) <= cg_dense.GRID_MAX_LANES
+    assert max(len(rr) - res for _, _, rr, res, _ in ctas) == plan.streamed
+    ld = 9 * cg_dense.grid_lanes(N)
+    R = 9 * max(counts)
+    assert plan.smem_bytes == 4 * (
+        2 * cg_dense.GRID_MAX_STAGES + ld + 9 * R + 8
+        + (plan.rows_per_cta + plan.stages * plan.stage_rows) * ld)
+    assert plan.smem_bytes <= cg_dense.SMEM_LIMIT
+    sr = plan.stage_rows
+    for _, _, rr, res, S in ctas:
+        streamed = len(rr) - res
+        if not streamed:
+            continue
+        # fetch k brings group k mod groups (rows res + g sr, ... of the
+        # group) into stage k mod S, read by consumption k; fetch k + S
+        # reuses that stage only after it: over three products every
+        # streamed row comes three times, each stage holds <= sr rows
+        groups = -(-streamed // sr)
+        fetched = []
+        for k in range(3 * groups):
+            g = k % groups
+            fetched += range(res + g * sr, min(res + (g + 1) * sr, len(rr)))
+        assert sorted(fetched) == sorted(list(range(res, len(rr))) * 3)
+        assert 1 <= sr <= cg_dense.GRID_MAX_STAGE_ROWS
+
+
+def _grid_product(H, v, N, dtype):
+    """A plain model of the grid kernel's product H v, from each CTA's
+    rows in its order (resident, then streamed): row rr's 256 thread
+    sums over the float4 columns t, t + 256, ... (each float4's four
+    products in order), a butterfly over each warp's 32 sums, then the 8
+    warps' sums in warp order (csrc/cg_dense.cu grid_rows,
+    grid_product). Products and sums round on their own here, where
+    the kernel's fmaf rounds once."""
+    _, ctas = _grid_deal(N)
+    Np = cg_dense.grid_lanes(N)
+    ld = 9 * Np
+    ld4 = ld // 4
+    T = 256
+    m = -(-ld4 // T)
+    vv = torch.zeros(m * T * 4, dtype=dtype)
+    vv[:ld] = v
+    out = torch.zeros(ld, dtype=dtype)
+    for _, _, rr, _, _ in ctas:
+        for f, j in rr:
+            h = torch.zeros(m * T * 4, dtype=dtype)
+            h[:ld] = H[f * Np + j]
+            prod = (h * vv).reshape(m, T, 4)
+            s = torch.zeros(T, dtype=dtype)
+            for k in range(m):
+                for c in range(4):
+                    s = s + prod[k, :, c]
+            w = s.reshape(8, 32)
+            for o in (16, 8, 4, 2, 1):
+                w = w + w[:, torch.arange(32) ^ o]
+            q = torch.zeros((), dtype=dtype)
+            for k in range(8):
+                q = q + w[k, 0]
+            out[f * Np + j] = q
+    return out
+
+
+@pytest.mark.parametrize("N", [129, 265, 400])
+def test_grid_product_model_matches_mv(N):
+    """The grid kernel's product, as a plain model of its deal and its
+    fixed order of sums (_grid_product), on a symmetric system in the Np
+    layout with zero pad lanes: in float64 H v to 1e-12 (the deal covers
+    each real row once, each row's columns once); in float32 torch.mv of
+    the same system to 1e-5 of sum |H_rc v_c| (sums of up to 3600
+    products in another order: about sqrt(3600) 2^-24 = 4e-6)."""
+    Np = cg_dense.grid_lanes(N)
+    ld = 9 * Np
+    rng = np.random.default_rng(N)
+    A = rng.standard_normal((ld, ld))
+    H64 = torch.from_numpy(A + A.T)
+    pad = [f * Np + j for f in range(9) for j in range(N, Np)]
+    H64[pad, :] = 0.0
+    H64[:, pad] = 0.0
+    v64 = torch.from_numpy(rng.standard_normal(ld))
+    v64[pad] = 0.0
+    scale = (H64.abs() @ v64.abs()).clamp_min(1e-300)
+    want = H64 @ v64
+    got64 = _grid_product(H64, v64, N, torch.float64)
+    assert bool(((got64 - want).abs() <= 1e-12 * scale).all())
+    H, v = H64.float(), v64.float()
+    got = _grid_product(H, v, N, torch.float32).double()
+    assert bool(((got - torch.mv(H, v).double()).abs()
+                 <= 1e-5 * scale).all())
+    assert not got[pad].any()
+
+
+@pytest.fixture(scope="module")
+def grid_sized_k3():
+    """pcg_dense (the twin, on the CPU) and the Pallas whole-loop kernel
+    (interpret mode) on a grid-sized system, N = 129 on Nc = 256
+    (_cg_system), under two CG option sets; computed once per module."""
+    import jax.numpy as jnp
+
+    from rootba_tpu.ops.pallas_cg import pcg_dense_vmem
+
+    N, Nc = 129, 256
+    _, Hz, blocks, b = _cg_system(N, Nc, 5)
+    chol = np.linalg.cholesky(blocks.astype(np.float64)).astype(np.float32)
+    out = {}
+    for q_tol, max_it in ((1e-1, 100), (float("-inf"), 25)):
+        kw = dict(max_num_iterations=max_it, q_tolerance=q_tol)
+        got = cg_dense.pcg_dense(_t(Hz), _t(chol), _t(b), **kw)
+        pal = pcg_dense_vmem(jnp.asarray(Hz), jnp.asarray(chol),
+                             jnp.asarray(b), interpret=True, **kw)
+        out[q_tol] = (got, pal)
+    return out
+
+
+@pytest.mark.parametrize("q_tol", [1e-1, float("-inf")])
+def test_pcg_dense_grid_sized_matches_pallas(grid_sized_k3, q_tol):
+    """Above the cluster kernels' 128 cameras, where the card runs the
+    grid kernel: the twin follows the Pallas kernel (interpret mode) on
+    N = 129 of Nc = 256 lanes: the same iteration count and termination,
+    x to rtol 2e-4 / atol 2e-5 (the JAX package's own kernel test)."""
+    got, pal = grid_sized_k3[q_tol]
+    assert int(got.num_iterations) == int(pal.num_iterations) > 1
+    assert int(got.termination_type) == int(pal.termination_type)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(pal.x),
+                               rtol=2e-4, atol=2e-5)
+
+
 def test_k3_plan_rejects():
-    with pytest.raises(ValueError, match="camera lanes"):
-        cg_dense.k3_plan(200, 1152)
+    """Above the grid kernel's capacity (2100 cameras on 132 SMs: its
+    vector and two row stages fill 227 KB) k3_plan raises, naming it."""
+    assert cg_dense.grid_max_cameras() == 2100
+    assert cg_dense.k3_plan(2100, 2176).kernel == "grid"
+    with pytest.raises(ValueError, match="2100, the grid kernel's capacity"):
+        cg_dense.k3_plan(2101, 2176)
     with pytest.raises(ValueError, match="N <= Nc"):
         cg_dense.k3_plan(50, 49)
 
@@ -403,13 +595,17 @@ def test_k3_launch_follows_plan(monkeypatch):
                         lambda name, Hz, b2, Lp, N, **kw:
                         seen.append((name, N)))
     monkeypatch.setattr(cg_dense, "_launch_grid",
-                        lambda Hz, b2, Lp, **kw: seen.append(("grid",)))
-    for N in (20, 49, 92, 93, 96, 97, 100, 126, 128, 129):
-        M = 9 * (128 if N <= 128 else 256)
-        cg_dense._launch(torch.zeros(M, M), None, None, N, max_iters=1)
+                        lambda Hz, b2, Lp, N, **kw:
+                        seen.append(("grid", N)))
+    for N in (20, 49, 92, 93, 96, 97, 100, 126, 128, 129, 257, 1025, 2048):
+        M = 9 * -(-N // 128) * 128
+        cg_dense._launch(torch.empty((M, M), device="meta"), None, None, N,
+                         max_iters=1)
     assert seen == [("cluster", 20), ("cluster", 49), ("cluster", 92),
                     ("cluster", 93), ("cluster", 96), ("half", 97),
-                    ("half", 100), ("half", 126), ("half", 128), ("grid",)]
+                    ("half", 100), ("half", 126), ("half", 128),
+                    ("grid", 129), ("grid", 257), ("grid", 1025),
+                    ("grid", 2048)]
 
 
 @pytest.mark.parametrize("q_tol,max_it", [(1e-1, 100), (float("-inf"), 25)])
