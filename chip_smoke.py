@@ -480,12 +480,10 @@ def check_k3_plan() -> None:
     and shared memory; and the same largest N for the grid kernel."""
     import ctypes
 
-    import torch
-
     from rootba_tpu_torch.ops import cg_dense, kernels
 
     lib = kernels.load("cg_dense")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = cg_dense.card_sms(0)
     rows, smem = ctypes.c_int(), ctypes.c_longlong()
     out = (ctypes.c_int * 7)()
 
@@ -544,7 +542,7 @@ def check_k3(dev, errs: dict) -> None:
         Lp = cg_dense.chol_planes(chol, Nc)
         b2 = torch.zeros((9, Nc), dtype=torch.float32, device=dev)
         b2[:, :N] = bt.T
-        plan = cg_dense.k3_plan(N, Nc)
+        plan = cg_dense.k3_plan(N, Nc, cg_dense.card_sms(dev))
         launchers = {"pcg_dense_grid": lambda *a, **k:
                      cg_dense._launch_grid(*a, N, **k)}
         for kernel in ("cluster", "half"):
@@ -1177,15 +1175,16 @@ def k3_row(name: str, call: tuple, errs: dict, path_errs: tuple,
            compare_grid: bool) -> dict:
     """A K3 kernel at a main-path call (the real Hz, chol, b of the call
     with the most CG iterations): device time, time per CG iteration,
-    the bound on the padded 9 Nc system and on the real 9N one, the
-    twin; with compare_grid, the grid kernel on the same call."""
+    the bound on the real 9N system that every K3 kernel works on (and,
+    beside it, on the padded 9 Nc one), the twin; with compare_grid,
+    the grid kernel on the same call."""
     from rootba_tpu_torch.ops import cg_dense
 
     _, (Hz, chol, b), kw = call
     Mz = Hz.shape[0]
     Nc = Mz // 9
     N = b.shape[0]
-    plan = cg_dense.k3_plan(N, Nc)
+    plan = cg_dense.k3_plan(N, Nc, cg_dense.card_sms(Hz.device))
     check(f"pcg_dense_{plan.kernel}" == name,
           f"{name}: the call (N={N}) plans the {plan.kernel} kernel")
     Lp, b2 = k3_inputs(Hz, chol, b)
@@ -1205,15 +1204,16 @@ def k3_row(name: str, call: tuple, errs: dict, path_errs: tuple,
                expect=KERNEL_NAMES[name]),
         **both("plain_ms", lambda: cg_dense.pcg_dense_plain(Hz, b2, Lp,
                                                             **ckw), 5, 1),
-        **k3_bound(Mz, Nc, iters, resets),
+        **k3_bound(9 * N, N, iters, resets),
         library_ms=None,
         cluster=plan.cluster, rows_per_cta=plan.rows_per_cta,
         smem_bytes=plan.smem_bytes,
         shape=f"M={Mz} N={N} cg_iters={iters}")
     row["us_per_cg_iter"] = 1e3 * row["ms"] / iters
-    real = k3_bound(9 * N, N, iters, resets)
-    row["bound_ms_real"] = real["bound_ms"]
-    row["bound_by_real"] = real["bound_by"]
+    row["bound_ms_real"] = row["bound_ms"]
+    padded = k3_bound(Mz, Nc, iters, resets)
+    row["bound_ms_padded"] = padded["bound_ms"]
+    row["bound_by_padded"] = padded["bound_by"]
     if compare_grid:
         row.update(both("grid_ms_same_call",
                         lambda: cg_dense._launch_grid(Hz, b2, Lp, N, **ckw),
@@ -2255,7 +2255,7 @@ def final4585_phase() -> dict:
           f"{shared.load_s:.3f} s, bucketized in {shared.bucketize_s:.3f} s",
           flush=True)
 
-    # 8a: float64, default options, 1 LM iteration through
+    # 8a: float64, default options, 2 LM iterations through
     # bundle_adjust: the host LM driver, the half table and the fused-W
     # factors, whose W rows K2 builds after each slot gather; every K1
     # and K2 call held against its twin
@@ -2264,7 +2264,7 @@ def final4585_phase() -> dict:
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors, \
             TwinCheck() as tw:
-        la = shared.solve(use_double=True, max_num_iterations=1)
+        la = shared.solve(use_double=True, max_num_iterations=2)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak_a = torch.cuda.max_memory_allocated()
@@ -2272,7 +2272,7 @@ def final4585_phase() -> dict:
                      True, "fused", True)
     counts["final4585_f64"] = (n, attempts)
     print(f"[phase 8a] final-4585 twin f64, default options (host LM "
-          f"driver, BSR half table, fused-W), 1 LM iteration with every "
+          f"driver, BSR half table, fused-W), 2 LM iterations with every "
           f"K1 and K2 call held against its twin (the times include the "
           f"checks; the host index builds {shared.builds_s:.3f} s): "
           f"{readout('final4585_f64', la, wall, peak_a, 'bundle_adjust')},"
@@ -2339,14 +2339,14 @@ def final4585_phase() -> dict:
           f"its twin ({wall:.3f} s): {tw32.report('final4585 f32')}",
           flush=True)
 
-    # 8c: float32, default options, 1 LM iteration, timed, in process
+    # 8c: float32, default options, 2 LM iterations, timed, in process
     # on the shared setup: the host LM driver, the packed table and W
     # tables, so K1 and K2
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t = time.monotonic()
     with LoopSpy() as loops, RouteSpy() as spy, FactorSpy() as factors:
-        lc = shared.solve(use_double=False, max_num_iterations=1)
+        lc = shared.solve(use_double=False, max_num_iterations=2)
     wall = time.monotonic() - t
     n = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2354,7 +2354,7 @@ def final4585_phase() -> dict:
                      False, "tables", True)
     counts["final4585"] = (n, attempts)
     print(f"[phase 8c] final-4585 twin f32, default options in process "
-          f"(host LM driver, BSR packed table, W tables), 1 LM iteration: "
+          f"(host LM driver, BSR packed table, W tables), 2 LM iterations: "
           f"{readout('final4585_f32', lc, wall, peak, 'bundle_adjust')}, "
           f"launches {n}", flush=True)
     shared = None

@@ -58,7 +58,8 @@ HALF_MAX_ROWS_PER_CTA = 72
 PLAN_KERNELS = ("grid", "cluster", "half")
 # The grid kernel's plan, as csrc/cg_dense.cu's grid_plan has it (the
 # card test holds k3_plan equal to rb_pcg_dense_grid_plan): one CTA per
-# SM of the H100 SXM, at most one per camera
+# SM, at most one per camera. The launch plans on its card's SMs
+# (card_sms); k3_plan's default is the H100 SXM's
 GRID_CTAS = 132
 # camera lanes per CTA, one thread each of its warp 0 (kGMaxLanes)
 GRID_MAX_LANES = 32
@@ -345,13 +346,20 @@ def _launch_in_cluster(kernel, Hz, b2, Lp, N, *, min_iters, max_iters,
     return x2, stats
 
 
+def card_sms(device) -> int:
+    """SMs of the card that holds `device`: the grid kernel's CTAs, as
+    its launch (rb_pcg_dense_f32) reads them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_grid(Hz, b2, Lp, N, *, min_iters, max_iters, q_tol, r_tol,
-                 reset_period):
+                 reset_period, plan: Optional[K3Plan] = None):
     """The grid kernel on N real cameras of the Nc-lane system, one CTA
-    per SM of Hz's card."""
+    per SM of Hz's card (`plan`: grid_plan on them, planned here if not
+    given)."""
     Nc = Hz.shape[0] // D
-    sms = torch.cuda.get_device_properties(Hz.device).multi_processor_count
-    plan = _grid_plan_checked(N, sms)
+    if plan is None:
+        plan = _grid_plan_checked(N, card_sms(Hz.device))
     lib = kernels.load("cg_dense")
     x2 = torch.empty((D, Nc), dtype=torch.float32, device=Hz.device)
     stats = torch.empty(4, dtype=torch.float32, device=Hz.device)
@@ -367,10 +375,11 @@ def _launch_grid(Hz, b2, Lp, N, *, min_iters, max_iters, q_tol, r_tol,
 
 
 def _launch(Hz, b2, Lp, N, **kw):
-    """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes."""
-    plan = k3_plan(N, Hz.shape[0] // D)
+    """The K3 kernel that k3_plan chooses for N cameras on Hz's lanes
+    and the SMs of Hz's card."""
+    plan = k3_plan(N, Hz.shape[0] // D, card_sms(Hz.device))
     if plan.kernel == "grid":
-        return _launch_grid(Hz, b2, Lp, N, **kw)
+        return _launch_grid(Hz, b2, Lp, N, plan=plan, **kw)
     return _launch_in_cluster(plan.kernel, Hz, b2, Lp, N, **kw)
 
 

@@ -587,16 +587,22 @@ def test_k3_plan_rejects():
         cg_dense.k3_plan(50, 49)
 
 
-def test_k3_launch_follows_plan(monkeypatch):
-    """_launch hands each system to the kernel k3_plan names; no
-    launcher stands in for another."""
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k3_launch_follows_plan(monkeypatch, sms):
+    """_launch hands each system to the kernel k3_plan names on the SMs
+    of Hz's card (the H100 SXM's 132, the PCIe card's 114), and the grid
+    kernel the plan it chose; no launcher stands in for another."""
     seen = []
+    monkeypatch.setattr(cg_dense, "card_sms", lambda device: sms)
     monkeypatch.setattr(cg_dense, "_launch_in_cluster",
                         lambda name, Hz, b2, Lp, N, **kw:
                         seen.append((name, N)))
-    monkeypatch.setattr(cg_dense, "_launch_grid",
-                        lambda Hz, b2, Lp, N, **kw:
-                        seen.append(("grid", N)))
+
+    def grid(Hz, b2, Lp, N, plan, **kw):
+        assert plan == cg_dense.grid_plan(N, sms) and plan.ctas == min(sms, N)
+        seen.append(("grid", N))
+
+    monkeypatch.setattr(cg_dense, "_launch_grid", grid)
     for N in (20, 49, 92, 93, 96, 97, 100, 126, 128, 129, 257, 1025, 2048):
         M = 9 * -(-N // 128) * 128
         cg_dense._launch(torch.empty((M, M), device="meta"), None, None, N,
