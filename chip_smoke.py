@@ -32,7 +32,10 @@ to its final cost, the native BAL tokenizer to the Python one and a
 solve from a `.cereal` file to the solve from the text, holds the
 "strips" and "obs" pair gathers to the default "stream" at final-3068
 (BSR) and the W-free sandwich to the W tables at trafalgar-257 (dense),
-with every K1/K2 call of one attempt of each held against its twin --
+with every K1/K2 call of one attempt of each held against its twin,
+builds the evaluation tools' batch report (eval/) over three ladybug-49
+logs that the card wrote and runs the live viewer's solve on the card,
+held bit for bit to a direct solve of the same twin --
 cross-checks small solves on the card against the CPU, shows from the
 wrappers' launch counts in one more solve of each path (under a
 profiler trace, which must hold the same launches) that each path went
@@ -44,7 +47,7 @@ prints
 
     {"einsum_mesh": {...}, "card": ...}
     {"strips": {...}, "card": ...}
-    {"checkpoint_baselines_formats": {...}, "card": ...}
+    {"checkpoint_baselines_formats": {...}, "eval": {...}, "card": ...}
     {"sc": {...}, "phase_walls_s": {...}}
     {"bsr_operators": [...]}
     <nvidia-smi name, power limit>
@@ -2867,9 +2870,189 @@ def mesh_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the eval phase: the evaluation tools on the card's logs, and the live
+# viewer's solve on the card
+
+# experiment -> (the smoke's run directory whose ba_log.json it reads,
+# the CLI solve that wrote it: LM iterations, solver type)
+EVAL_LOGS = {"sqrt": ("ladybug_timed", 20, None),
+             "sc": ("sc_ladybug", 20, "SCHUR_COMPLEMENT"),
+             "poba": ("poba_ladybug", 10, "POWER_SCHUR_COMPLEMENT")}
+# LM iterations of the live viewer's solve, and the phase's wall budget
+EVAL_LIVE_ITERS = 3
+EVAL_BUDGET_S = 5.0
+
+
+def eval_report() -> dict:
+    """The batch report (`eval.experiments.load_all`, cache off, and
+    `eval.report.generate_report`) over three ladybug-49 logs that the
+    card wrote in phases 3, 10 and 11 (SQUARE_ROOT, SC, PoBA): every
+    experiment named, each table's final cost that of its log's last
+    `cost`."""
+    import shutil
+
+    from rootba_tpu_torch.eval.experiments import load_all
+    from rootba_tpu_torch.eval.report import generate_report
+
+    wd = WORK / "eval"
+    shutil.rmtree(wd, ignore_errors=True)
+    spec = [f'[options]\nbase_path = "{wd}"\n']
+    last = {}
+    for exp, (tag, _, _) in EVAL_LOGS.items():
+        src = WORK / tag / "ba_log.json"
+        check(src.exists(), f"eval: no log {src} (run phase 3, 10 and 11 "
+                            f"first)")
+        d = wd / "runs" / exp / "ladybug"
+        d.mkdir(parents=True)
+        shutil.copy(src, d / "ba_log.json")
+        last[exp] = json.loads(src.read_text())["cost"][-1]
+        spec.append(f'\n[[experiments]]\nname = "{exp}"\n'
+                    f'display_name = "{exp} f32"\n'
+                    f'pattern = "runs/{exp}/*"\n')
+    (wd / "spec.toml").write_text("".join(spec))
+    exps = load_all(str(wd / "spec.toml"), use_cache=False)
+    check(list(exps) == list(EVAL_LOGS)
+          and all(list(e.runs) == ["ladybug"] for e in exps.values()),
+          f"eval: experiments {[(k, list(e.runs)) for k, e in exps.items()]}")
+    md = Path(generate_report(exps, str(wd / "report"))).read_text()
+    tex = (wd / "report" / "report.tex").read_text()
+    lines = md.splitlines()
+    head = next(ln for ln in lines if ln.startswith("| sequence |"))
+    row = next(ln for ln in lines if ln.startswith("| ladybug |"))
+    head = [c.strip() for c in head.strip("|").split("|")]
+    row = [c.strip().strip("*") for c in row.strip("|").split("|")]
+    tex_row = next(ln for ln in tex.splitlines() if ln.startswith("ladybug"))
+    for exp, cost in last.items():
+        check(exps[exp].runs["ladybug"].status == "completed",
+              f"eval: {exp} run {exps[exp].runs['ladybug'].status}")
+        cell = row[head.index(f"{exp} f32: final cost")]
+        check(cell == f"{cost:.6f}" and f"{cost:.6f}" in tex_row,
+              f"eval: {exp}'s final cost {cell} in the report, {cost} in "
+              f"its log")
+    skipped = [ln.strip("()") for ln in lines if "skipped" in ln]
+    return dict(experiments=list(exps), final_costs=last,
+                plots_skipped=skipped)
+
+
+def eval_live(lady_setup: "SharedSetup") -> dict:
+    """The live viewer (`eval.live_view.make_server`) on the ladybug-49
+    twin on the card: POST /optimize solves f32 for EVAL_LIVE_ITERS LM
+    iterations on the server's thread; /state is polled until done. Its
+    final iteration counter, cost and payload points equal, bit for bit,
+    a direct `optimize_lm` of the same twin and options on the card in
+    this thread; the points are finite and moved; the solve launched K1,
+    K2 and the cluster K3 (counts set to 0 just before it)."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from rootba_tpu_torch.eval import live_view
+    from rootba_tpu_torch.eval.html_view import viewer_payload
+    from rootba_tpu_torch.ops import kernels
+    from rootba_tpu_torch.solver import lm
+    from rootba_tpu_torch.utils.device import resolve_device
+
+    def options():
+        return lady_setup.solver(lm_loop="host", verbosity_level=0,
+                                 max_num_iterations=EVAL_LIVE_ITERS)
+
+    problem = lady_setup.problem
+    first = viewer_payload(problem)
+    srv = live_view.make_server(problem, options(), port=0, device="cuda")
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        req = urllib.request.Request(base + "/optimize", method="POST")
+        kernels.reset_launches()
+        t = time.monotonic()
+        started = json.loads(urllib.request.urlopen(req, timeout=10).read())
+        check(started["status"] == "started", f"eval live: {started}")
+        deadline = t + 60
+        while True:
+            d = json.loads(urllib.request.urlopen(
+                base + "/state?since=-1", timeout=10).read())
+            if d["done"]:
+                break
+            check(time.monotonic() < deadline,
+                  "eval live: the solve did not end in 60 s")
+            time.sleep(0.01)
+        live_s = time.monotonic() - t
+        n = dict(kernels.LAUNCHES)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(10)
+    check(not th.is_alive(), "eval live: the server did not stop")
+    check(d["error"] is None, f"eval live: the solve raised {d['error']}")
+    for k in n:
+        want = k in ("outer81_fold", "w_build", "pcg_dense_cluster")
+        check((n[k] > 0) == want, f"eval live: kernel {k} launched {n[k]} "
+                                  f"times {n}")
+    dev = resolve_device("cuda")
+    t = time.monotonic()
+    with lady_setup:
+        state, s = lm.optimize_lm(lady_setup.bp, options(), device=dev)
+    torch.cuda.synchronize()
+    direct_s = time.monotonic() - t
+    want = live_view._snapshot(problem.copy(), lady_setup.bp, state,
+                               400_000)
+    cost = s.iterations[-1].cost.all.error
+    check(d["it"] == len(s.iterations) == EVAL_LIVE_ITERS + 1,
+          f"eval live: final it {d['it']}, the direct solve's "
+          f"{len(s.iterations)} iterations")
+    check(d["cost"] == cost, f"eval live: final cost {d['cost']!r} against "
+                             f"the direct solve's {cost!r}")
+    check(d["payload"]["points"] == want["points"]
+          and d["payload"]["cam_c"] == want["cam_c"],
+          "eval live: the final points differ from the direct solve's")
+    pts = np.frombuffer(base64.b64decode(d["payload"]["points"]), "<f4")
+    check(bool(np.isfinite(pts).all())
+          and d["payload"]["points"] != first["points"],
+          "eval live: final points not finite or not moved")
+    return dict(iterations=EVAL_LIVE_ITERS, final_it=d["it"],
+                initial_cost=s.iterations[0].cost.all.error,
+                final_cost=cost, live_s=live_s, direct_s=direct_s,
+                launches=n)
+
+
+def eval_phase(lady_setup: "SharedSetup") -> dict:
+    """The eval phase: the batch report over the card's logs and the
+    live viewer's solve on the card."""
+    t = time.monotonic()
+    out = {"report": eval_report()}
+    report_s = time.monotonic() - t
+    out["live"] = eval_live(lady_setup)
+    out["wall_s"] = time.monotonic() - t
+    r, lv = out["report"], out["live"]
+    print(f"[eval] report over {', '.join(r['experiments'])} (final costs "
+          f"{r['final_costs']}) in {report_s:.3f} s; plots: "
+          f"{r['plots_skipped'] or 'drawn'}", flush=True)
+    print(f"[eval] live viewer on the card, f32, {lv['iterations']} LM "
+          f"iterations: final it {lv['final_it']}, cost "
+          f"{lv['initial_cost']:.6f} -> {lv['final_cost']!r}, equal bit "
+          f"for bit (cost, points) to the direct optimize_lm; launches "
+          f"{lv['launches']}; live {lv['live_s']:.3f} s (server, polls, "
+          f"snapshots), direct {lv['direct_s']:.3f} s; phase "
+          f"{out['wall_s']:.3f} s (budget {EVAL_BUDGET_S:g} s)", flush=True)
+    return out
+
+
+def eval_rehearsal_logs(lady: Path) -> None:
+    """The three ladybug-49 solves whose logs the eval phase reads, as
+    phases 3, 10 and 11 run them (for `--only eval`)."""
+    for tag, iters, solver in EVAL_LOGS.values():
+        summarize_log(run_cli(lady, iters, tag, solver=solver), tag)
+
+
 PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
           "final3068", "determinism", "sc", "strips", "einsum", "mesh",
-          "checkpoint", "baselines", "formats", "final4585", "traced")
+          "checkpoint", "baselines", "formats", "eval", "final4585",
+          "traced")
 
 
 def main(argv=None) -> int:
@@ -2881,7 +3064,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
-                    help=f"comma-separated subset of {', '.join(PHASES)}")
+                    help=f"comma-separated subset of {', '.join(PHASES)} "
+                         f"(eval also runs the three ladybug solves, "
+                         f"SQUARE_ROOT, SC and PoBA, whose logs it reads)")
     # phase 17 starts this script once per rank of its world of 2
     ap.add_argument("--mesh-worker", nargs=2, type=int, default=None,
                     metavar=("RANK", "PORT"), help=argparse.SUPPRESS)
@@ -2942,7 +3127,7 @@ def partial_run(only, want, lap, dev) -> int:
         lap("phase 5")
     # the twins each phase reads
     need = {"ladybug": ("ladybug", "sc", "checkpoint", "baselines",
-                        "formats"),
+                        "formats", "eval"),
             "trafalgar": ("trafalgar", "sc", "determinism", "strips"),
             "final3068": ("final3068", "sc", "determinism", "strips",
                           "einsum", "checkpoint", "formats")}
@@ -2965,8 +3150,10 @@ def partial_run(only, want, lap, dev) -> int:
     if want("mesh"):
         mesh_phase()
         lap("phase 17")
+    lady_setup = (SharedSetup(lady)
+                  if want("checkpoint") or want("eval") else None)
     if want("checkpoint"):
-        checkpoint_phase(final, SharedSetup(lady))
+        checkpoint_phase(final, lady_setup)
         lap("phase 12")
     if want("baselines"):
         baselines_phase(lady)
@@ -2974,6 +3161,11 @@ def partial_run(only, want, lap, dev) -> int:
     if want("formats"):
         formats_phase(final, lady)
         lap("phase 14")
+    if want("eval"):
+        eval_rehearsal_logs(lady)
+        lap("eval logs")
+        eval_phase(lady_setup)
+        lap("eval")
     if want("final4585"):
         final4585_phase()
         lap("phase 8")
@@ -3249,12 +3441,18 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     lap("phase 17")
 
     # phases 12-14: checkpoint/resume, the CERES baselines, the formats
-    host_out = {"checkpoint": checkpoint_phase(final, SharedSetup(lady))}
+    lady_setup = SharedSetup(lady)  # phase 12's and the eval phase's
+    host_out = {"checkpoint": checkpoint_phase(final, lady_setup)}
     lap("phase 12")
     host_out["baselines"] = baselines_phase(lady)
     lap("phase 13")
     host_out["formats"] = formats_phase(final, lady)
     lap("phase 14")
+
+    # the eval phase: the report over phases 3, 10 and 11's logs, and
+    # the live viewer's solve on the card
+    eval_out = eval_phase(lady_setup)
+    lap("eval")
 
     phase8, tw4585 = final4585_phase()
     for k, st in tw4585["float32"].items():
@@ -3434,7 +3632,7 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     print(json.dumps({"einsum_mesh": layout_out, "card": smi}))
     print(json.dumps({"strips": strips_out, "card": smi}))
     print(json.dumps({"checkpoint_baselines_formats": host_out,
-                      "card": smi}))
+                      "eval": eval_out, "card": smi}))
     print(json.dumps({"sc": sc_out, "phase_walls_s": walls}))
     print(json.dumps({"bsr_operators": ops}))
     print(smi)

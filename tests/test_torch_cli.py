@@ -31,9 +31,9 @@ def _write_problem(path):
 
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
-    """Importing the port and solving on the CPU with each of its solvers
-    (and the strips and obs pair gathers) leaves jax and the JAX package
-    out of sys.modules."""
+    """Importing the port (its eval tools too) and solving on the CPU with
+    each of its solvers (and the strips and obs pair gathers) leaves jax
+    and the JAX package out of sys.modules."""
     prog = f"""
 import sys
 sys.path.insert(0, {str(REPO)!r})
@@ -48,6 +48,12 @@ import rootba_tpu_torch.cli.bal_ceres
 from rootba_tpu_torch.bal import problem, rootba_io
 from rootba_tpu_torch.config.options import SolverType
 from rootba_tpu_torch.native import runtime
+import rootba_tpu_torch.eval.log, rootba_tpu_torch.eval.metrics
+import rootba_tpu_torch.eval.run, rootba_tpu_torch.eval.experiments
+import rootba_tpu_torch.eval.report, rootba_tpu_torch.eval.generate_tables
+import rootba_tpu_torch.eval.plot_logs, rootba_tpu_torch.eval.num_ops
+import rootba_tpu_torch.eval.html_view, rootba_tpu_torch.eval.view
+import rootba_tpu_torch.eval.live_view
 for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT",
                "CERES"):
     for method in (("trf", "lm") if solver == "CERES" else ("trf",)):
@@ -102,6 +108,26 @@ def test_port_sources_never_import_jax():
     for f in files:
         m = pat.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
+
+
+def test_every_cli_script_has_a_torch_script():
+    """pyproject.toml installs, for every console script of the JAX
+    package's CLI, a `<name>-torch` script on the port's module of the
+    same name, whose main imports and is callable."""
+    import importlib
+    import tomllib
+
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    jax_scripts = {name: target for name, target in scripts.items()
+                   if target.startswith("rootba_tpu.cli.")}
+    assert set(jax_scripts) == {"bal", "bal-qr", "bal-sc", "bal-power-sc"}
+    for name, target in jax_scripts.items():
+        module = target.split(":")[0].rsplit(".", 1)[1]
+        assert (scripts.get(f"{name}-torch")
+                == f"rootba_tpu_torch.cli.{module}:main"), name
+        main = importlib.import_module(f"rootba_tpu_torch.cli.{module}").main
+        assert callable(main), name
 
 
 def test_cli_cpu_writes_the_reference_log(tmp_path, capsys):
