@@ -26,6 +26,7 @@ import numpy as np
 from rootba_tpu_torch.bal import nplie
 from rootba_tpu_torch.bal.rng import MinstdRand0, perturbation
 from rootba_tpu_torch.config.options import BalDatasetOptions, DatasetType
+from rootba_tpu_torch.log import trace
 
 CAM_STATE_SIZE = 10  # quaternion(4) + translation(3) + intrinsics(3)
 POSE_SIZE = 9  # tangent: trans(3) + rot(3) + intrinsics(3)
@@ -407,7 +408,10 @@ def load_normalized_bal_problem(
     dataset_summary: Optional[DatasetSummary] = None,
     timing_summary: Optional[PipelineTimingSummary] = None,
 ) -> BalProblem:
-    """Full preprocessing pipeline (reference bal_problem.cpp:774-853)."""
+    """Full preprocessing pipeline (reference bal_problem.cpp:774-853).
+    Its steps are the spans load.parse, load.normalize, load.perturb and
+    load.filter of log/trace.py, from the timestamps that timing_summary
+    gets too."""
     if isinstance(options_or_path, str):
         options = BalDatasetOptions(input=options_or_path)
     else:
@@ -435,15 +439,21 @@ def load_normalized_bal_problem(
         problem = load_bundler(options.input, options.quiet)
     else:
         raise ValueError(f"unknown input type {input_type}")
-    t_load = time.monotonic() - t0
+    t1 = time.monotonic()
+    trace.add("load.parse", t0, t1)
 
-    t0 = time.monotonic()
+    t = t1
     if options.normalize:
         problem.normalize(options.normalization_scale)
+        t = trace.since("load.normalize", t)
     problem.perturb(options.rotation_sigma, options.translation_sigma,
                     options.point_sigma, options.random_seed)
+    t = trace.since("load.perturb", t)
     problem.filter_obs(options.init_depth_threshold)
-    t_preprocess = time.monotonic() - t0
+    t2 = time.monotonic()
+    trace.add("load.filter", t, t2)
+    t_load = t1 - t0
+    t_preprocess = t2 - t1
 
     if timing_summary is not None:
         timing_summary.load_time = t_load

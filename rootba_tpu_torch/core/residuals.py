@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from rootba_tpu_torch.log import trace
+
 ROBUST_NORM_NONE = 0
 ROBUST_NORM_HUBER = 1
 
@@ -126,4 +128,7 @@ def residual_info_from_values(v):
 def residual_info_to_host(info: ResidualInfo):
     """One device->host transfer of all seven fields (the log summary's
     ResidualInfoHost)."""
-    return residual_info_from_values(residual_info_vector(info).tolist())
+    vec = residual_info_vector(info)
+    with trace.sync("cost"):
+        values = vec.tolist()
+    return residual_info_from_values(values)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.ops import kernels
 from rootba_tpu_torch.solver.cg import (
     CG_FAILURE,
@@ -236,7 +237,9 @@ def chol_planes(chol: torch.Tensor, Nc: int) -> torch.Tensor:
     L[:, i, j]), identity beyond N so padded lanes solve to zero."""
     N = chol.shape[0]
     pad = torch.zeros((81, Nc - N), dtype=chol.dtype, device=chol.device)
-    pad[[i * D + i for i in range(D)], :] = 1.0
+    # the list index and the value are uploaded, each with a stream sync
+    with trace.sync("k3_planes"):
+        pad[[i * D + i for i in range(D)], :] = 1.0
     return torch.cat([chol.reshape(N, 81).T, pad], dim=1).contiguous()
 
 

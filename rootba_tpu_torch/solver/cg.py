@@ -6,7 +6,9 @@ loop (cg/conjugate_gradient.hpp:83-300) -- residual reset every
 indefiniteness (p'q <= 0), and the Nash zeta test (zeta = i (Q1-Q0)/Q1 <
 q_tolerance) or |r| <= r_tolerance |b|, within min/max iteration bounds.
 `lax.while_loop` becomes a Python loop whose only host read per
-iteration is the termination code; everything else stays on the device.
+iteration is the termination code (the span "sync.pcg" of log/trace.py),
+plus one read of |b| ("sync.pcg_norm") and one upload ("sync.pcg_setup")
+per solve; everything else stays on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Union
 
 import torch
+
+from rootba_tpu_torch.log import trace
 
 # termination types (mirror ConjugateGradientsSolver::Summary)
 CG_RUNNING = -1
@@ -58,7 +62,8 @@ def pcg(matvec: Callable, precond: Callable, b: torch.Tensor, *,
     dot = _make_dot(compensated)
     norm_b = torch.linalg.vector_norm(b.reshape(-1))
     tol_r = b.new_full((), r_tolerance) * norm_b
-    running = torch.tensor(CG_RUNNING, device=b.device)
+    with trace.sync("pcg_setup"):  # the upload syncs the stream
+        running = torch.tensor(CG_RUNNING, device=b.device)
 
     x = torch.zeros_like(b)
     r = b
@@ -66,6 +71,7 @@ def pcg(matvec: Callable, precond: Callable, b: torch.Tensor, *,
     rho = b.new_full((), 1.0)
     q0 = b.new_zeros(())
     term = running
+    term_h = CG_RUNNING  # the host's copy of term
     i = 0
     while i < max_num_iterations:
         i += 1
@@ -107,12 +113,16 @@ def pcg(matvec: Callable, precond: Callable, b: torch.Tensor, *,
             torch.where(indefinite, CG_NO_CONVERGENCE,
                         torch.where(done, CG_SUCCESS, running)))
         q0 = q1
-        if int(term) != CG_RUNNING:
+        with trace.sync("pcg"):
+            term_h = int(term)
+        if term_h != CG_RUNNING:
             break
 
     # |b| == 0 -> success with x = 0 ("Convergence. |b| = 0")
-    term = int(term)
-    if float(norm_b) == 0:
+    term = term_h
+    with trace.sync("pcg_norm"):
+        b_zero = float(norm_b) == 0
+    if b_zero:
         term = CG_SUCCESS
         x = torch.zeros_like(x)
     elif term == CG_RUNNING:

@@ -40,6 +40,7 @@ import torch
 
 from rootba_tpu_torch.config.options import PreconditionerType
 from rootba_tpu_torch.core import lie
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.ops.block9 import chol9, chol9_inv, inv9_apply
 from rootba_tpu_torch.parallel.mesh import all_reduce_sum, shard_rows
 from rootba_tpu_torch.solver.cg import pcg
@@ -132,6 +133,11 @@ def build_pair_structure(bp, num_cameras: int, device,
                          mesh=None) -> PairStructure:
     """The unique pairs of the whole problem; under a mesh each bucket's
     pair ids keep this rank's landmark rows."""
+    with trace.span("prep.build.pair_structure"):
+        return _build_pair_structure(bp, num_cameras, device, mesh)
+
+
+def _build_pair_structure(bp, num_cameras, device, mesh):
     N = num_cameras
     codes_list = []
     for b in bp.buckets:
@@ -370,7 +376,9 @@ def power_series_solve(apply_hpp_inv, apply_e0, b, order: int,
         if q_tolerance > 0:
             zeta = (float(i) * torch.linalg.vector_norm(tmp.reshape(-1))
                     / torch.linalg.vector_norm(acc.reshape(-1)))
-            if bool(zeta < q_tolerance):
+            with trace.sync("power_series"):
+                stop = bool(zeta < q_tolerance)
+            if stop:
                 break
     return acc, i
 
@@ -495,8 +503,10 @@ class SCLinearizer(LinearizerBase):
             min_group=opts.effective_strip_min_group(
                 self.bp.num_observations), dense_grid=self.dense_rcs)
         if self.bsr_rcs:
-            self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
-                pairs_host.pair_row, pairs_host.pair_col, N), self.device)
+            with trace.span("prep.build.bsr_matvec"):
+                self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
+                    pairs_host.pair_row, pairs_host.pair_col, N),
+                    self.device)
             self.bsr_sym = bsr_symmetric_fits(
                 self.bsr, self.dtype.itemsize,
                 int(opts.bsr_pack_max_gb * (1 << 30)))

@@ -21,9 +21,10 @@ backtracking); this loop reuses the linearization of a rejected attempt,
 which gives the same values. The attempt body is
 `LinearizerBase.attempt_at` (solver/lm.py), which the host driver runs
 too. It reads a handful of scalars back to the host in one transfer per
-attempt, the driver's only sync (pcg in solver/cg.py adds one per CG
-iteration; the CG kernel none). That sync also timestamps the attempt,
-so per-iteration times are measured (timing_attributed=False). The
+attempt (pcg in solver/cg.py adds a read per CG iteration and syncs of
+its own; every sync of an attempt is a "sync.*" span of log/trace.py).
+That read also timestamps the attempt, so per-iteration times are
+measured (timing_attributed=False). The
 per-stage split comes from CUDA events recorded at the stage boundaries
 and read after the sync (the host clock on the CPU), so it adds no sync
 of its own.
@@ -42,6 +43,7 @@ import torch
 
 from rootba_tpu_torch.config.options import OptimizedCost, SolverOptions
 from rootba_tpu_torch.core.residuals import residual_info_to_host
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.log.summary import (
     CONVERGENCE,
     NO_CONVERGENCE,
@@ -107,11 +109,14 @@ class _StageClock:
     card each stage boundary records a CUDA event, and `spans` (called
     after a sync that covers the last boundary) reads the device time
     between consecutive events; on the CPU, whose ops run synchronously,
-    the boundaries are host clock readings."""
+    the boundaries are host clock readings. While the recorder
+    (log/trace.py) is on, each lap also records the host span since the
+    previous one as "lm.<name>", unless `spans` is False."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, spans: bool = True):
         self.cuda = device.type == "cuda"
         self.t0 = time.monotonic()
+        self._host = self.t0 if spans else None
         self.marks = [("start", self._mark())]
 
     def _mark(self):
@@ -123,6 +128,8 @@ class _StageClock:
 
     def lap(self, name: str):
         self.marks.append((name, self._mark()))
+        if self._host is not None:
+            self._host = trace.since("lm." + name, self._host)
 
     def spans(self) -> dict:
         out = {}
@@ -180,12 +187,14 @@ def optimize_lm_fused(bp, options: SolverOptions,
     it = 1
     lins = pose_scale = None
     while it <= max_it and term == TERM_RUNNING:
-        clock = _StageClock(device)
-        if lins is None:
-            lins, pose_scale, _ = linearizer.stage1(cams, lm_ps)
-            n_jac += 1
-            clock.lap("stage1")
-        a = linearizer.attempt_at(cams, lm_ps, lins, pose_scale, lam, clock)
+        with trace.span("lm.attempt"):
+            clock = _StageClock(device)
+            if lins is None:
+                lins, pose_scale, _ = linearizer.stage1(cams, lm_ps)
+                n_jac += 1
+                clock.lap("stage1")
+            a = linearizer.attempt_at(cams, lm_ps, lins, pose_scale, lam,
+                                      clock)
         it_times.append(time.monotonic() - clock.t0)
         ri2, l_diff, inc_finite = a.ri2, a.l_diff, a.inc_finite
         cg_iters = a.cg_iters

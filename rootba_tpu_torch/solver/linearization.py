@@ -70,6 +70,7 @@ from rootba_tpu_torch.core.residuals import (
     empty_residual_info,
     join_residual_info,
 )
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.ops import fold
 from rootba_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -818,20 +819,27 @@ def build_pair_index(buckets, num_cameras: int, pair_gather: str, device,
 
     grid = dict(grid_n=grid_n, dense_grid=dense_grid)
     N = num_cameras
-    if pair_gather == "stream":
-        host = bucketing.build_pair_stream(buckets, N, **grid)
-        return (PairStreamIndex.from_host(host, buckets, device),
-                CamStreamIndex.from_host(bucketing.build_cam_stream(
-                    buckets, N), buckets, device), host)
-    if pair_gather == "strips":
-        host = bucketing.build_pair_strips(buckets, N, min_group=min_group,
-                                           **grid)
-        return (PairStripsIndex.from_host(host, buckets, device),
-                CamStripsIndex.from_host(bucketing.build_cam_strips(
-                    buckets, N, min_group=min_group), buckets, device),
-                host)
-    host = bucketing.build_pair_csr(buckets, N, **grid)
-    return PairCsrIndex.from_host(host, device), None, host
+    with trace.span("prep.build.pair_index"):
+        if pair_gather == "stream":
+            with trace.span("prep.build.pair_stream"):
+                host = bucketing.build_pair_stream(buckets, N, **grid)
+                pairs = PairStreamIndex.from_host(host, buckets, device)
+            with trace.span("prep.build.cam_stream"):
+                cams = CamStreamIndex.from_host(bucketing.build_cam_stream(
+                    buckets, N), buckets, device)
+            return pairs, cams, host
+        if pair_gather == "strips":
+            with trace.span("prep.build.pair_strips"):
+                host = bucketing.build_pair_strips(
+                    buckets, N, min_group=min_group, **grid)
+                pairs = PairStripsIndex.from_host(host, buckets, device)
+            with trace.span("prep.build.cam_strips"):
+                cams = CamStripsIndex.from_host(bucketing.build_cam_strips(
+                    buckets, N, min_group=min_group), buckets, device)
+            return pairs, cams, host
+        with trace.span("prep.build.pair_csr"):
+            host = bucketing.build_pair_csr(buckets, N, **grid)
+            return PairCsrIndex.from_host(host, device), None, host
 
 
 def cam_parts_mode(cam_strips) -> bool:

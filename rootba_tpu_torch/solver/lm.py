@@ -32,8 +32,8 @@ lambda > max_lambda or the iteration cap.
 
 One attempt body serves both drivers: `LinearizerBase.attempt_at`
 runs stage2, the linear solve, apply and the cost evaluation and reads
-their scalars back in one host transfer (the attempt's only sync), as
-the JAX host driver's one-dispatch attempt does. Every stage span is
+their scalars back in one host transfer, as the JAX host driver's
+one-dispatch attempt does. Every stage span is
 timed by CUDA events at the stage boundaries (fused_lm._StageClock),
 read after that sync, so every iteration has measured stage fields and
 timing_attributed=False. The JAX driver's calibration attempts, its
@@ -79,6 +79,7 @@ from rootba_tpu_torch.core.residuals import (
     residual_info_to_host,
     residual_info_vector,
 )
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.log.summary import (
     CONVERGENCE,
     NO_CONVERGENCE,
@@ -128,15 +129,17 @@ def make_bucket_indices(bp: BucketedProblem, dtype: torch.dtype,
     """The buckets' index tensors on `device`; under a mesh only this
     rank's landmark rows are uploaded."""
     out = []
-    for b in bp.buckets:
-        h = shard_bucket_index(BucketIndex(
-            obs_uv=b.obs_uv, cam_idx=b.cam_idx.astype(np.int64),
-            mask=b.mask, lm_mask=b.lm_mask), mesh)
-        out.append(BucketIndex(
-            obs_uv=torch.as_tensor(h.obs_uv, dtype=dtype, device=device),
-            cam_idx=torch.as_tensor(h.cam_idx, device=device),
-            mask=torch.as_tensor(h.mask, device=device),
-            lm_mask=torch.as_tensor(h.lm_mask, device=device)))
+    with trace.span("prep.build.bucket_index"):
+        for b in bp.buckets:
+            h = shard_bucket_index(BucketIndex(
+                obs_uv=b.obs_uv, cam_idx=b.cam_idx.astype(np.int64),
+                mask=b.mask, lm_mask=b.lm_mask), mesh)
+            out.append(BucketIndex(
+                obs_uv=torch.as_tensor(h.obs_uv, dtype=dtype,
+                                       device=device),
+                cam_idx=torch.as_tensor(h.cam_idx, device=device),
+                mask=torch.as_tensor(h.mask, device=device),
+                lm_mask=torch.as_tensor(h.lm_mask, device=device)))
     return tuple(out)
 
 
@@ -168,9 +171,10 @@ def initial_state(bp: BucketedProblem, dtype: torch.dtype,
                   mesh: Optional[LandmarkMesh] = None) -> BAState:
     """The problem's starting state (under a mesh, this rank's landmark
     rows)."""
-    return shard_state(state_from_numpy(
-        {"q": bp.cam_q0, "t": bp.cam_t0, "intr": bp.cam_intr0,
-         "lm_ps": bp.lm_p0}, dtype, device), mesh)
+    with trace.span("prep.state"):
+        return shard_state(state_from_numpy(
+            {"q": bp.cam_q0, "t": bp.cam_t0, "intr": bp.cam_intr0,
+             "lm_ps": bp.lm_p0}, dtype, device), mesh)
 
 
 class Attempt(NamedTuple):
@@ -261,8 +265,9 @@ class LinearizerBase:
         if self._cam_csr_cache is None:
             from rootba_tpu_torch.solver.linearization import CamCsrIndex
 
-            self._cam_csr_cache = CamCsrIndex.from_host(self.bp.cam_csr,
-                                                        self.device)
+            with trace.span("prep.build.cam_csr"):
+                self._cam_csr_cache = CamCsrIndex.from_host(self.bp.cam_csr,
+                                                            self.device)
         return self._cam_csr_cache
 
     @cam_csr.setter
@@ -336,13 +341,20 @@ class LinearizerBase:
         clock.lap("bsub")
         info2 = self.error(cams2, lm_ps2)
         clock.lap("err")
-        # the attempt's one sync: cost, l_diff, finiteness, the CG count
-        # and termination
-        *v, l_diff, inc_finite, cg_iters, cg_term = torch.cat([
-            residual_info_vector(info2), torch.stack([
-                torch.as_tensor(x, device=self.device).to(torch.float64)
-                for x in (l_diff, inc_finite, cg_iters, cg_term)])
-        ]).tolist()
+        # the attempt's one read: cost, l_diff, finiteness, the CG count
+        # and termination (pcg's host loop returns the last two on the
+        # host: their upload syncs the stream too)
+        def up(x):
+            if torch.is_tensor(x):
+                return x.to(torch.float64)
+            with trace.sync("attempt_upload"):
+                return torch.as_tensor(x, device=self.device).to(
+                    torch.float64)
+
+        vec = torch.cat([residual_info_vector(info2), torch.stack([
+            up(x) for x in (l_diff, inc_finite, cg_iters, cg_term)])])
+        with trace.sync("attempt"):
+            *v, l_diff, inc_finite, cg_iters, cg_term = vec.tolist()
         return Attempt(cams=cams2, lm_ps=lm_ps2, l_diff=l_diff,
                        ri2=residual_info_from_values(v),
                        inc_finite=bool(inc_finite), cg_iters=int(cg_iters),
@@ -359,7 +371,8 @@ class LinearizerBase:
         pass
 
     def compute_error(self) -> ResidualInfoHost:
-        clock = _StageClock(self.device)
+        # no lm.err span: this evaluation is not part of an attempt
+        clock = _StageClock(self.device, spans=False)
         info = self.error(self.state.cams, self.state.lm_ps)
         clock.lap("err")
         ri = residual_info_to_host(info)
@@ -377,7 +390,8 @@ class LinearizerBase:
         lins, pose_scale, failures = self.stage1(self.state.cams,
                                                  self.state.lm_ps)
         clock.lap("stage1")
-        n = int(failures)
+        with trace.sync("failures"):
+            n = int(failures)
         if n > 0:
             raise FloatingPointError(f"numerical failure during "
                                      f"linearization ({n} observations)")
@@ -653,8 +667,8 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
             iteration_done()
             continue
 
-        linearizer.linearize()
-
+        # the first attempt at a linearization point linearizes it
+        # first, inside its lm.attempt span
         j = 0
         while it <= max_lm_iter and not terminated:
             if j > 0:
@@ -663,10 +677,13 @@ def optimize_lm(bp: BucketedProblem, options: SolverOptions,
                 it_summary = IterationSummary(iteration=it)
                 linearizer.start_iteration(it_summary)
                 timer_iteration = time.monotonic()
-            j += 1
 
             backup_state = linearizer.state
-            a = linearizer.attempt(lam)
+            with trace.span("lm.attempt"):
+                if j == 0:
+                    linearizer.linearize()
+                a = linearizer.attempt(lam)
+            j += 1
             l_diff, ri2 = a.l_diff, a.ri2
 
             if not a.inc_finite:
@@ -843,9 +860,10 @@ def bundle_adjust(problem: BalProblem,
     device = resolve_device(str(device))
     options.warn_inert_knobs()
     mesh = make_mesh(options.num_devices, device)
-    bp = bucketize(problem, pow2_from=options.bucket_pow2_from,
-                   row_align=pad_rows_for_mesh(
-                       1 if mesh is None else mesh.size))
+    with trace.span("prep.bucketize"):
+        bp = bucketize(problem, pow2_from=options.bucket_pow2_from,
+                       row_align=pad_rows_for_mesh(
+                           1 if mesh is None else mesh.size))
     # routing as in the JAX package: the attempt loop up to
     # fused_obs_threshold observations, the host driver above it and
     # whenever every stage is to be timed on its own
@@ -862,12 +880,13 @@ def bundle_adjust(problem: BalProblem,
         state, summary = optimize_lm(bp, options, summary, device=device)
     # the landmark shards gathered to every rank (cameras are
     # replicated)
-    problem.lm_p[:] = scatter_landmarks(
-        bp, [gather_to_host(p, mesh).astype(np.float64)
-             for p in state.lm_ps])
-    problem.cam_q[:] = state.cams.q.cpu().double().numpy()
-    problem.cam_t[:] = state.cams.t.cpu().double().numpy()
-    problem.cam_intr[:] = state.cams.intr.cpu().double().numpy()
+    with trace.span("post.copy_back"):
+        problem.lm_p[:] = scatter_landmarks(
+            bp, [gather_to_host(p, mesh).astype(np.float64)
+                 for p in state.lm_ps])
+        problem.cam_q[:] = state.cams.q.cpu().double().numpy()
+        problem.cam_t[:] = state.cams.t.cpu().double().numpy()
+        problem.cam_intr[:] = state.cams.intr.cpu().double().numpy()
     if timing is not None:
         timing.optimize_time = summary.total_time_in_seconds
     return summary

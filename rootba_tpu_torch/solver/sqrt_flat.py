@@ -30,6 +30,7 @@ import torch
 
 from rootba_tpu_torch.config.options import PreconditionerType
 from rootba_tpu_torch.core import lie
+from rootba_tpu_torch.log import trace
 from rootba_tpu_torch.ops import fold
 from rootba_tpu_torch.ops.batched_qr import householder_qr3_planar, solve_upper
 from rootba_tpu_torch.ops.block9 import chol9, chol9_inv, inv9_apply
@@ -581,9 +582,11 @@ class FlatSqrtLinearizer(LinearizerBase):
                 # built (as in the JAX package)
                 if cam_parts_mode(self.cam_strips):
                     self.cam_csr = None
-                self.bsr = BsrMatvecIndex.from_host(
-                    build_bsr_matvec(pairs_host.pair_row,
-                                     pairs_host.pair_col, N), self.device)
+                with trace.span("prep.build.bsr_matvec"):
+                    self.bsr = BsrMatvecIndex.from_host(
+                        build_bsr_matvec(pairs_host.pair_row,
+                                         pairs_host.pair_col, N),
+                        self.device)
                 # the half table when the packed one would exceed the
                 # budget
                 self.bsr_sym = bsr_symmetric_fits(
