@@ -1594,8 +1594,10 @@ class SharedSetup:
     in-process solves of one twin: while active, bundle_adjust's
     bucketize returns `bp`, and the pair, camera and BSR index builders of
     bal.bucketing return their first result for the same buckets and
-    arguments (the device uploads still run per linearizer). The twin is
-    loaded as the CLI loads it (bench.py's preprocessing)."""
+    arguments (the device uploads still run per linearizer; the stream
+    route's pair index is built on the card per linearizer,
+    solver.pair_stream, so only scripts reach build_pair_stream). The
+    twin is loaded as the CLI loads it (bench.py's preprocessing)."""
 
     BUILDERS = ("build_pair_stream", "build_cam_stream", "build_bsr_matvec",
                 "build_pair_strips", "build_cam_strips", "build_pair_csr")

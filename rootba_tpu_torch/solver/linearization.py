@@ -275,8 +275,9 @@ def _all_reduce_info(info: ResidualInfo, mesh) -> ResidualInfo:
 
 
 # ---------------------------------------------------------------------------
-# Stream indices (host builders: bal.bucketing.build_pair_stream /
-# build_cam_stream) and their reducers.
+# Stream indices (the pair stream built on the device by
+# solver.pair_stream, whose host twin is bal.bucketing.build_pair_stream;
+# the camera stream by bal.bucketing.build_cam_stream) and their reducers.
 
 
 def _global_slots(local: np.ndarray, rows_sub: int, n: int,
@@ -337,12 +338,15 @@ def _scatter_runs(out: torch.Tensor, rows: torch.Tensor,
 @dataclass(frozen=True)
 class PairStreamIndex:
     """Device copy of bucketing.PairStream. Per stack t: the bucket id,
-    run width and, per sub-stream, the [R*W] slot ids of both pair
-    sides, and either the [R] pair id of each run (pad = P) or, where a
-    pair has several runs, the run tree."""
+    run width, landmark rows per sub-stream and, per sub-stream, the
+    [R*W] slot ids of both pair sides, and either the [R] pair id of
+    each run (pad = P) or, where a pair has several runs, the run tree.
+    The solvers build it on their device (solver.pair_stream); from_host
+    uploads the host build."""
 
     widths: Tuple[int, ...]
     stream_bucket: Tuple[int, ...]
+    rows_sub: Tuple[int, ...]
     wi_idx: Tuple[Tuple[torch.Tensor, ...], ...]
     wj_idx: Tuple[Tuple[torch.Tensor, ...], ...]
     run_pair: Tuple[Tuple[Optional[torch.Tensor], ...], ...]
@@ -378,8 +382,8 @@ class PairStreamIndex:
             rt.append(trees)
         return PairStreamIndex(
             widths=tuple(ps.widths), stream_bucket=tuple(ps.stream_bucket),
-            wi_idx=tuple(wi), wj_idx=tuple(wj), run_pair=tuple(rp),
-            run_tree=tuple(rt),
+            rows_sub=tuple(ps.rows_sub), wi_idx=tuple(wi),
+            wj_idx=tuple(wj), run_pair=tuple(rp), run_tree=tuple(rt),
             pair_row=up(ps.pair_row), pair_col=up(ps.pair_col),
             up_idx=up(ps.up_idx), lo_idx=up(ps.lo_idx))
 
@@ -813,17 +817,20 @@ def build_pair_index(buckets, num_cameras: int, pair_gather: str, device,
     per-camera index (None for "obs": its per-camera sums go through the
     camera CSR), from the host buckets. grid_n pads the dense block maps
     to K3's camera grid; dense_grid=False skips them (BSR mode). Returns
-    (pair index, camera index, host pair index: its pair list feeds the
-    BSR index)."""
+    (pair index, camera index, host pair index -- for "stream" its host
+    pair list, pair_stream.PairList -- whose pair list feeds the BSR
+    index). The stream index is built on `device`; the others on
+    the host, then uploaded."""
     from rootba_tpu_torch.bal import bucketing
+    from rootba_tpu_torch.solver import pair_stream
 
     grid = dict(grid_n=grid_n, dense_grid=dense_grid)
     N = num_cameras
     with trace.span("prep.build.pair_index"):
         if pair_gather == "stream":
             with trace.span("prep.build.pair_stream"):
-                host = bucketing.build_pair_stream(buckets, N, **grid)
-                pairs = PairStreamIndex.from_host(host, buckets, device)
+                pairs, host = pair_stream.build_pair_stream_index(
+                    buckets, N, device, **grid)
             with trace.span("prep.build.cam_stream"):
                 cams = CamStreamIndex.from_host(bucketing.build_cam_stream(
                     buckets, N), buckets, device)

@@ -29,8 +29,10 @@ COMMON = {"load.parse", "load.normalize", "load.perturb", "load.filter",
           "prep.bucketize", "prep.build.bucket_index", "prep.state",
           "post.copy_back", "lm.attempt", "lm.stage1", "lm.stage2",
           "lm.lsolve", "lm.bsub", "lm.err", "sync.cost", "sync.attempt"}
+# the stream index, built on the device: its reads of sizes and its pair
+# list are sync.pair_stream
 STREAMS = {"prep.build.pair_index", "prep.build.pair_stream",
-           "prep.build.cam_stream"}
+           "prep.build.cam_stream", "sync.pair_stream"}
 # pcg's reads, and the upload of the CG count and termination that it
 # returns on the host
 PCG = {"sync.pcg", "sync.pcg_norm", "sync.pcg_setup", "sync.attempt_upload"}
@@ -163,3 +165,46 @@ def test_both_drivers_record_the_same_names(route):
     # the host driver alone reads stage1's failure count back
     assert host.pop("sync.failures") == fused["lm.stage1"]
     assert host == fused
+
+
+def _syncs_per_iter(spans, counters, summary):
+    """portbench's syncs_per_iter: sync counters less the syncs inside
+    an outermost load, prep or post span, per LM iteration."""
+    outer = [s for s in spans if s[3] == 0
+             and s[0].startswith(("load.", "prep.", "post."))]
+    inside = sum(1 for s in spans if s[0].startswith("sync.") and any(
+        o[1] <= s[1] and s[2] <= o[2] for o in outer))
+    n = sum(v for k, v in counters.items() if k.startswith("sync."))
+    return (n - inside) / (len(summary.iterations) - 1)
+
+
+def test_pair_stream_syncs_stay_in_its_build(route, bal_file, monkeypatch):
+    """The device build's reads are counted, all inside its
+    prep.build.pair_stream span, so syncs_per_iter is that of a solve on
+    the host build (read nothing)."""
+    name, names, runs = route
+    if "sync.pair_stream" not in names:
+        # the routes that build no pair stream read nothing of it
+        assert all("sync.pair_stream" not in r[1] for r in runs.values())
+        return
+    from rootba_tpu_torch.solver import explicit_sc, sqrt_flat
+    from tests.test_torch_pair_stream_device import _host_build_pair_index
+
+    for spans, counters, _, _ in runs.values():
+        builds = [s for s in spans if s[0] == "prep.build.pair_stream"]
+        reads = [s for s in spans if s[0] == "sync.pair_stream"]
+        # the pair count, the slot total, a bucket's counts, the pair list
+        assert counters["sync.pair_stream"] == len(reads) >= 4
+        assert len(builds) == 1 and all(
+            builds[0][1] <= s[1] and s[2] <= builds[0][2] for s in reads)
+
+    monkeypatch.setattr(sqrt_flat, "build_pair_index",
+                        _host_build_pair_index)
+    monkeypatch.setattr(explicit_sc, "build_pair_index",
+                        _host_build_pair_index)
+    extra = ROUTES[name][0]
+    spans, counters, summary, _ = runs["fused"]
+    h_spans, h_counters, h_summary, _ = _solve(bal_file, "fused", **extra)
+    assert "sync.pair_stream" not in h_counters
+    assert (_syncs_per_iter(spans, counters, summary)
+            == _syncs_per_iter(h_spans, h_counters, h_summary))
