@@ -7,14 +7,21 @@ benchmark's per-layer metrics (portbench/spans.py reads them).
     with trace.sync("pcg"):  # a span "sync.pcg", counted once
         n = int(term)
     trace.count("name")
+    with trace.timer("rcs.assemble", device):  # device time, no sync
+        ...
+    trace.settle()  # after a sync that covers the timed work
     spans, counters = trace.stop()
 
 `stop()` returns the spans as (name, t0, t1, depth) in start order,
 depth being the number of recorded spans that enclose the span, and the
-counters as {name: value}. The recorder is off until `start()`, and a
-run that never calls it records nothing: `span` and `sync` then check
-one module global and return one shared no-op context manager, with no
-clock read and nothing allocated or appended.
+counters as {name: value}. A timer counts its blocks under its name and
+adds their seconds to the counter "<name>_s": on the card from two CUDA
+events, read by the next `settle()` (which the caller places after a
+sync it makes anyway, so the timer adds none), on the CPU from the
+host clock at once. The recorder is off until `start()`, and a run
+that never calls it records nothing: `span`, `sync` and `timer` then
+check one module global and return one shared no-op context manager,
+with no clock read, no event and nothing allocated or appended.
 
 Every time is `time.monotonic()`, the clock that the benchmark's
 harness times its solves on and onto which its device trace is placed
@@ -29,9 +36,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Tuple
 
+import torch
+
 _on = False
 _spans: List[Tuple[str, float, float]] = []
-_counters: Dict[str, int] = {}
+_counters: Dict[str, float] = {}
+# (counter, start event, end event) of the CUDA timers not read yet
+_pending: List[tuple] = []
 
 
 class _Off:
@@ -81,6 +92,54 @@ def sync(site: str):
     return _Span(name)
 
 
+class _Timer:
+    __slots__ = ("name", "cuda", "a")
+
+    def __init__(self, name: str, cuda: bool):
+        self.name = name
+        self.cuda = cuda
+
+    def __enter__(self):
+        if self.cuda:
+            self.a = torch.cuda.Event(enable_timing=True)
+            self.a.record()
+        else:
+            self.a = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        _counters[self.name] = _counters.get(self.name, 0) + 1
+        if self.cuda:
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            _pending.append((self.name + "_s", self.a, b))
+        else:
+            _add_seconds(self.name + "_s", time.monotonic() - self.a)
+        return False
+
+
+def _add_seconds(name: str, s: float) -> None:
+    _counters[name] = _counters.get(name, 0.0) + s
+
+
+def timer(name: str, device):
+    """A context manager that times the block's work on `device` (a
+    torch.device): counted under `name`, its seconds added to
+    "<name>_s" (on the card at the next `settle()`)."""
+    if not _on:
+        return _OFF
+    return _Timer(name, device.type == "cuda")
+
+
+def settle() -> None:
+    """Adds the seconds of the card's timed blocks recorded since the
+    last call to their counters. Call it only after a sync that covers
+    them: reading a CUDA event that has not completed raises."""
+    for name, a, b in _pending:
+        _add_seconds(name, a.elapsed_time(b) / 1e3)
+    _pending.clear()
+
+
 def count(name: str, n: int = 1) -> None:
     """Adds n to the counter `name`."""
     if _on:
@@ -108,6 +167,7 @@ def start() -> None:
     global _on
     _spans.clear()
     _counters.clear()
+    _pending.clear()
     _on = True
 
 
@@ -126,4 +186,5 @@ def stop():
     counters = dict(_counters)
     _spans.clear()
     _counters.clear()
+    _pending.clear()
     return out, counters

@@ -866,6 +866,17 @@ def pair_parts_mode(pairs) -> bool:
     return isinstance(pairs, PairStripsIndex) and not pairs.has_leftover
 
 
+def pair_slots(pairs) -> int:
+    """The slots, padding included, that one strict-pair reduction over
+    `pairs` gathers and folds, from the index's shapes (no device
+    read)."""
+    if isinstance(pairs, PairStreamIndex):
+        return sum(wi.numel() for t in pairs.wi_idx for wi in t)
+    if isinstance(pairs, PairStripsIndex):
+        return sum(f.numel() for f in pairs.first) + pairs.wi_idx.numel()
+    return pairs.wi_idx.numel()
+
+
 def _no_leftover_parts(parts: bool) -> None:
     if parts:
         raise ValueError("per-bucket strip tables require an index built "

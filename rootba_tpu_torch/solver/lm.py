@@ -355,6 +355,8 @@ class LinearizerBase:
             up(x) for x in (l_diff, inc_finite, cg_iters, cg_term)])])
         with trace.sync("attempt"):
             *v, l_diff, inc_finite, cg_iters, cg_term = vec.tolist()
+        # the stage timers' CUDA events completed before that read
+        trace.settle()
         return Attempt(cams=cams2, lm_ps=lm_ps2, l_diff=l_diff,
                        ri2=residual_info_from_values(v),
                        inc_finite=bool(inc_finite), cg_iters=int(cg_iters),

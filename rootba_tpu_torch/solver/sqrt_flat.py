@@ -60,6 +60,7 @@ from rootba_tpu_torch.solver.linearization import (
     gather_cam_planes,
     packed_cam_table,
     pair_parts_mode,
+    pair_slots,
     segment_sum,
     sqrt_ww_diag_strips,
     sqrt_ww_pair_strips,
@@ -561,6 +562,7 @@ class FlatSqrtLinearizer(LinearizerBase):
                               and self.dtype == torch.float32
                               and (small or opts.pallas_cg == "on"))
         self.pairs = None
+        self.pair_slots = 0
         self.cam_strips = None
         self.bsr = None
         self.bsr_sym = False
@@ -576,6 +578,7 @@ class FlatSqrtLinearizer(LinearizerBase):
                 min_group=min_group,
                 grid_n=Nc if self.use_cg_kernel else None,
                 dense_grid=self.explicit_rcs)
+            self.pair_slots = pair_slots(self.pairs)
             if self.bsr_rcs:
                 # the stream or leftover-free strips reducers take every
                 # per-camera sum of BSR mode, so the camera CSR is never
@@ -642,21 +645,26 @@ class FlatSqrtLinearizer(LinearizerBase):
                              precond_jacobi=self.precond_jacobi,
                              with_precond=self.precond_jacobi,
                              cam_strips=self.cam_strips, csr=csr)
-        if self.bsr_rcs:
-            # always the strict-pair half table (scaled and negated in
-            # place), expanded here to the packed table when it fits, so
-            # the [2P, 81] form never exists. The index goes in as an
-            # argument: eager PyTorch traces nothing, so no index is
-            # captured as a program constant (the JAX package's stage2
-            # captures it in a closure, sqrt_flat.py:904 there).
-            half, diag = flat_assemble_rcs_bsr(
-                lins, stage2, self.pairs, N, self.buckets, self.cam_strips,
-                symmetric=True, csr=csr)
-            H = bsr_build_table(half, self.bsr, self.bsr_sym)
-        else:
-            H, diag = flat_assemble_rcs(lins, stage2, self.pairs, N,
-                                        self.buckets, self.cam_strips,
-                                        csr=csr)
+        # the assembly's device time (read after the attempt's sync)
+        # and the pair slots it folds, for the benchmark's stage2 metrics
+        with trace.timer("rcs.assemble", self.device):
+            if self.bsr_rcs:
+                # always the strict-pair half table (scaled and negated
+                # in place), expanded here to the packed table when it
+                # fits, so the [2P, 81] form never exists. The index
+                # goes in as an argument: eager PyTorch traces nothing,
+                # so no index is captured as a program constant (the
+                # JAX package's stage2 captures it in a closure,
+                # sqrt_flat.py:904 there).
+                half, diag = flat_assemble_rcs_bsr(
+                    lins, stage2, self.pairs, N, self.buckets,
+                    self.cam_strips, symmetric=True, csr=csr)
+                H = bsr_build_table(half, self.bsr, self.bsr_sym)
+            else:
+                H, diag = flat_assemble_rcs(lins, stage2, self.pairs, N,
+                                            self.buckets, self.cam_strips,
+                                            csr=csr)
+        trace.count("rcs.pair_slots", self.pair_slots)
         if not self.precond_jacobi:
             if self.precond_diag:
                 diag = diag * torch.eye(P9, dtype=diag.dtype,

@@ -14,8 +14,10 @@ warm-up solve), then, in one process:
     synchronising call, by source line, and the innermost program span
     around it (a read outside a sync.* span inside an lm.attempt is one
     the program does not count);
-  * the recorder's cost per call while off (`span`, `sync`, `since`) and
-    on (`span`), from a loop of 10^6 calls;
+  * the recorder's cost per call while off (`span`, `sync`, `since`,
+    `timer`, `count`) and on (`span`, `count`), from a loop of 10^6
+    calls, and of the timer on, with its CUDA events and their read,
+    from 10^4;
   * 2K solves, recorder off and on in turns (off, on, on, off, ...),
     so that the host's drift falls on both sides: each solve's time, and
     per span name the mean seconds per solve of those with it on;
@@ -76,12 +78,32 @@ def coverage(record, solve) -> dict:
             "host_prep_share": prep / host_prep}
 
 
-def recorder_cost(trace, n=1_000_000) -> dict:
-    """Nanoseconds per call of the recorder's entry points."""
-    def per_call(fn):
+def recorder_cost(trace, n=1_000_000, n_timer=10_000) -> dict:
+    """Nanoseconds per call of the recorder's entry points (the timer
+    on the card, with its two CUDA events and their read, n_timer
+    times while on)."""
+    import torch
+
+    def per_call(fn, calls=n):
         t = time.perf_counter()
         fn()
-        return 1e9 * (time.perf_counter() - t) / n
+        return 1e9 * (time.perf_counter() - t) / calls
+
+    dev = torch.device("cuda")
+
+    def timers_loop(calls=n):
+        for _ in range(calls):
+            with trace.timer("x", dev):
+                pass
+
+    def timers_read():
+        timers_loop(n_timer)
+        torch.cuda.synchronize()
+        trace.settle()
+
+    def counts_loop():
+        for _ in range(n):
+            trace.count("x", 3)
 
     def spans_loop():
         for _ in range(n):
@@ -105,9 +127,13 @@ def recorder_cost(trace, n=1_000_000) -> dict:
     trace.stop()
     out = {"loop_ns": per_call(empty_loop), "span_off_ns":
            per_call(spans_loop), "sync_off_ns": per_call(syncs_loop),
-           "since_off_ns": per_call(since_loop)}
+           "since_off_ns": per_call(since_loop),
+           "timer_off_ns": per_call(timers_loop),
+           "count_off_ns": per_call(counts_loop)}
     trace.start()
     out["span_on_ns"] = per_call(spans_loop)
+    out["count_on_ns"] = per_call(counts_loop)
+    out["timer_on_ns"] = per_call(timers_read, n_timer)
     trace.stop()
     return out
 

@@ -36,6 +36,9 @@ STREAMS = {"prep.build.pair_index", "prep.build.pair_stream",
 # pcg's reads, and the upload of the CG count and termination that it
 # returns on the host
 PCG = {"sync.pcg", "sync.pcg_norm", "sync.pcg_setup", "sync.attempt_upload"}
+# the explicit systems' assembly timer (its count and seconds) and the
+# pair slots it folds: counters with no span
+RCS = {"rcs.assemble", "rcs.assemble_s", "rcs.pair_slots"}
 # route: (options, the names it records besides COMMON; the dense f32
 # route solves by the CG kernel (its twin here), which reads nothing
 # back; only its factors' padding is uploaded)
@@ -90,7 +93,8 @@ def route(request, bal_file):
 
 
 def test_off_by_default_and_a_solve_records_nothing(bal_file):
-    assert trace.span("a") is trace.span("b") is trace.sync("c")
+    assert (trace.span("a") is trace.span("b") is trace.sync("c")
+            is trace.timer("d", torch.device("cpu")))
     problem = load_normalized_bal_problem(
         BalDatasetOptions(input=bal_file, quiet=True))
     bundle_adjust(problem, SolverOptions(verbosity_level=0,
@@ -113,13 +117,37 @@ def test_start_clears_the_previous_record():
     assert counters == {"sync.site": 1, "n": 2}
 
 
+def test_timer_and_counter_record_only_while_on():
+    cpu = torch.device("cpu")
+    with trace.timer("t", cpu):
+        trace.count("n")
+    trace.settle()
+    assert trace.stop() == ([], {})
+    trace.start()
+    with trace.timer("t", cpu):
+        time.sleep(0.002)
+    with trace.timer("t", cpu):
+        trace.count("n", 3)
+    trace.settle()
+    spans, counters = trace.stop()
+    assert spans == [] and set(counters) == {"t", "t_s", "n"}
+    assert counters["t"] == 2 and counters["n"] == 3
+    assert 0.002 <= counters["t_s"] < 1.0
+    with trace.timer("t", cpu):
+        pass
+    assert trace.stop() == ([], {})
+
+
 def test_every_name_of_the_route(route):
-    _, names, runs = route
+    name, names, runs = route
     spans, counters, _, _ = runs["fused"]
     assert {s[0] for s in spans} == names
-    assert set(counters) == {n for n in names if n.startswith("sync.")}
+    # the explicit SQUARE_ROOT systems time their assembly and count its
+    # pair slots
+    assert set(counters) == ({n for n in names if n.startswith("sync.")}
+                             | (RCS if name in ("dense", "bsr") else set()))
     assert all(counters[n] == sum(s[0] == n for s in spans)
-               for n in counters)
+               for n in counters if n not in RCS)
 
 
 def test_stages_nest_in_attempts(route):
@@ -138,6 +166,12 @@ def test_host_reads_counted(route):
         its = summary.iterations[1:]
         cg = sum(it.linear_solver_iterations for it in its)
         assert counters["sync.attempt"] == len(its)
+        if name in ("dense", "bsr"):
+            # one assembly an attempt, inside stage2's time
+            assert counters["rcs.assemble"] == len(its)
+            assert 0 < counters["rcs.assemble_s"] <= sum(
+                it.stage2_time_in_seconds for it in its)
+            assert counters["rcs.pair_slots"] > 0
         if "sync.pcg" in counters:
             # one read of the termination per CG iteration, one of |b|
             # and one upload per solve
