@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 
 from rootba_tpu_torch.bal import nplie
-from rootba_tpu_torch.bal.rng import MinstdRand0, perturbation
+from rootba_tpu_torch.bal.rng import MinstdRand0, perturbation_normals
 from rootba_tpu_torch.config.options import BalDatasetOptions, DatasetType
 from rootba_tpu_torch.log import trace
 
@@ -135,7 +135,13 @@ class BalProblem:
                 point_sigma: float, seed: int):
         """Gaussian state perturbation, draw-order identical to reference
         bal_problem.cpp:509-554 (cameras first: translation then rotation
-        per camera; then landmarks)."""
+        per camera; then landmarks), every draw at once
+        (rng.perturbation_normals). The state comes out bit for bit as
+        the reference's loop over cameras and landmarks leaves it: the
+        batched updates are the loop's IEEE operations, element for
+        element. The rotation update (sin, cos) stays a loop over the
+        cameras, since numpy's vectorized transcendentals may round
+        otherwise than on one 3-vector."""
         if rotation_sigma < 0 or translation_sigma < 0 or point_sigma < 0:
             raise ValueError("sigmas must be non-negative")
         if rotation_sigma == 0 and translation_sigma == 0 and point_sigma == 0:
@@ -145,21 +151,27 @@ class BalProblem:
                   f"t: {translation_sigma}, p: {point_sigma}")
         eng = MinstdRand0(seed if seed >= 0
                           else int.from_bytes(os.urandom(4), "little"))
-        if rotation_sigma > 0 or translation_sigma > 0:
+        per_cam = int(translation_sigma > 0) + int(rotation_sigma > 0)
+        n_cam = per_cam * self.num_cameras
+        n_calls = n_cam + (self.num_landmarks if point_sigma > 0 else 0)
+        normals, candidates = perturbation_normals(eng, n_calls)
+        trace.count("load.perturb_calls", n_calls)
+        trace.count("load.perturb_candidates", candidates)
+        cam = normals[:n_cam].reshape(self.num_cameras, per_cam, 3)
+        if translation_sigma > 0:
+            # perturb camera centers in world coordinates
+            center = nplie.quat_rotate(nplie.quat_conj(self.cam_q),
+                                       -self.cam_t)
+            center = center + cam[:, 0] * translation_sigma
+            self.cam_t[:] = -nplie.quat_rotate(self.cam_q, center)
+        if rotation_sigma > 0:
+            rot = cam[:, -1] * rotation_sigma
             for i in range(self.num_cameras):
-                if translation_sigma > 0:
-                    # perturb camera center in world coordinates
-                    qinv = nplie.quat_conj(self.cam_q[i])
-                    center = nplie.quat_rotate(qinv, -self.cam_t[i])
-                    center = center + perturbation(translation_sigma, eng)
-                    self.cam_t[i] = -nplie.quat_rotate(self.cam_q[i], center)
-                if rotation_sigma > 0:
-                    dq = nplie.so3_exp(perturbation(rotation_sigma, eng))
-                    self.cam_q[i] = nplie.quat_normalize(
-                        nplie.quat_mul(dq, self.cam_q[i]))
+                dq = nplie.so3_exp(rot[i])
+                self.cam_q[i] = nplie.quat_normalize(
+                    nplie.quat_mul(dq, self.cam_q[i]))
         if point_sigma > 0:
-            for i in range(self.num_landmarks):
-                self.lm_p[i] += perturbation(point_sigma, eng)
+            self.lm_p += normals[n_cam:] * point_sigma
 
     def filter_obs(self, threshold: float):
         """Drop observations with camera-frame depth < threshold, then

@@ -20,7 +20,8 @@ warm-up solve), then, in one process:
     from 10^4;
   * 2K solves, recorder off and on in turns (off, on, on, off, ...),
     so that the host's drift falls on both sides: each solve's time, and
-    per span name the mean seconds per solve of those with it on;
+    per span name the mean seconds per solve of those with it on, and
+    the counters per LM iteration (syncs_per_iter) and per solve;
   * one solve under portbench.trace.Tracer (torch.profiler; taken
     again, up to twice, where the trace lost its marker kernel) with the
     recorder on: per span name its seconds against the untraced mean
@@ -227,6 +228,9 @@ def measure(cell_name, seed, k, sync_debug, out_dir: Path) -> dict:
         out["untraced_per_name_s"] = per_name(on_record, on_solves)
         its = sum(s.lm_iterations for s in on_solves)
         out["syncs_per_iter"] = {k_: v / its for k_, v in counters.items()}
+        out["counters_per_solve"] = {
+            k_: v / len(on_solves) for k_, v in counters.items()
+            if not spans.is_sync(k_)}
         out["coverage"] = [coverage(on_record, s) for s in on_solves]
 
         for attempt in range(3):
@@ -285,6 +289,7 @@ def main() -> int:
             "solve_s_off": o["solve_s_off"], "solve_s_on": o["solve_s_on"],
             "recorder_ns": o["recorder_ns"],
             "syncs_per_iter": o["syncs_per_iter"],
+            "counters_per_solve": o["counters_per_solve"],
             "unwrapped_in_attempt": [
                 x for x in o.get("sync_scan", {}).get("by_site", [])
                 if x["in_attempt"] and not x["span"].startswith("sync.")],

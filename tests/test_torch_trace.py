@@ -39,11 +39,18 @@ PCG = {"sync.pcg", "sync.pcg_norm", "sync.pcg_setup", "sync.attempt_upload"}
 # the explicit systems' assembly timer (its count and seconds) and the
 # pair slots it folds: counters with no span
 RCS = {"rcs.assemble", "rcs.assemble_s", "rcs.pair_slots"}
+# the perturbation's calls and polar candidates, counted inside
+# load.perturb where the load perturbs: counters with no span
+PERTURB = {"load.perturb_calls", "load.perturb_candidates"}
+# the dataset options a route sets (the others are solver options)
+DATASET = {"rotation_sigma", "translation_sigma", "point_sigma"}
 # route: (options, the names it records besides COMMON; the dense f32
 # route solves by the CG kernel (its twin here), which reads nothing
 # back; only its factors' padding is uploaded)
 ROUTES = {
     "dense": (dict(), STREAMS | {"sync.k3_planes"}),
+    "perturbed": (dict(translation_sigma=0.01, point_sigma=0.01),
+                  STREAMS | {"sync.k3_planes"}),
     "implicit": (dict(sqrt_rcs_mode="implicit"),
                  {"prep.build.cam_csr"} | PCG),
     "bsr": (dict(dense_rcs_max_cameras=0),
@@ -71,12 +78,12 @@ def _solve(path, lm_loop, **extra):
     monotonic times before and after)."""
     options = SolverOptions(verbosity_level=0, max_num_iterations=4,
                             use_double=False, lm_loop=lm_loop)
+    dataset = BalDatasetOptions(input=path, quiet=True)
     for k, v in extra.items():
-        setattr(options, k, v)
+        setattr(dataset if k in DATASET else options, k, v)
     trace.start()
     t0 = time.monotonic()
-    problem = load_normalized_bal_problem(
-        BalDatasetOptions(input=path, quiet=True))
+    problem = load_normalized_bal_problem(dataset)
     summary = SolverSummary()
     bundle_adjust(problem, options, summary, device="cpu")
     t1 = time.monotonic()
@@ -143,11 +150,20 @@ def test_every_name_of_the_route(route):
     spans, counters, _, _ = runs["fused"]
     assert {s[0] for s in spans} == names
     # the explicit SQUARE_ROOT systems time their assembly and count its
-    # pair slots
-    assert set(counters) == ({n for n in names if n.startswith("sync.")}
-                             | (RCS if name in ("dense", "bsr") else set()))
+    # pair slots; a perturbing load counts its draws
+    assert set(counters) == (
+        {n for n in names if n.startswith("sync.")}
+        | (RCS if name in ("dense", "perturbed", "bsr") else set())
+        | (PERTURB if name == "perturbed" else set()))
     assert all(counters[n] == sum(s[0] == n for s in spans)
-               for n in counters if n not in RCS)
+               for n in counters if n not in RCS | PERTURB)
+    # the load's steps, outermost and in turn: load.perturb wraps the
+    # perturbation between the normalisation and the filter
+    load = [s for s in spans if s[0].startswith("load.")]
+    assert [s[0] for s in load] == ["load.parse", "load.normalize",
+                                    "load.perturb", "load.filter"]
+    assert all(s[3] == 0 for s in load)
+    assert all(a[2] <= b[1] for a, b in zip(load, load[1:]))
 
 
 def test_stages_nest_in_attempts(route):
@@ -166,7 +182,7 @@ def test_host_reads_counted(route):
         its = summary.iterations[1:]
         cg = sum(it.linear_solver_iterations for it in its)
         assert counters["sync.attempt"] == len(its)
-        if name in ("dense", "bsr"):
+        if name in ("dense", "perturbed", "bsr"):
             # one assembly an attempt, inside stage2's time
             assert counters["rcs.assemble"] == len(its)
             assert 0 < counters["rcs.assemble_s"] <= sum(
@@ -180,7 +196,7 @@ def test_host_reads_counted(route):
                     == len(its))
         if name == "poba":
             assert counters["sync.power_series"] == cg
-        if name == "dense":
+        if name in ("dense", "perturbed"):
             assert counters["sync.k3_planes"] == len(its)
         else:
             assert counters["sync.attempt_upload"] == 2 * len(its)
