@@ -29,10 +29,10 @@ resumes the final-3068 (CLI, host LM driver) and ladybug-49 solves from
 a checkpoint and holds them to the straight solves bit for bit, holds
 the numpy LM baseline (host) to the card's trajectory and scipy's TRF
 to its final cost, the native BAL tokenizer to the Python one and a
-solve from a `.cereal` file to the solve from the text, holds the
-"strips" and "obs" pair gathers to the default "stream" at final-3068
-(BSR) and the W-free sandwich to the W tables at trafalgar-257 (dense),
-with every K1/K2 call of one attempt of each held against its twin,
+solve from a `.cereal` file to the solve from the text, holds the "obs"
+pair gather to the default "stream" (SC at trafalgar-257, dense; the
+default solver at final-3068, BSR, where both are timed warm, in turns),
+with every K1/K2 call of one obs attempt held against its twin,
 builds the evaluation tools' batch report (eval/) over three ladybug-49
 logs that the card wrote and runs the live viewer's solve on the card,
 held bit for bit to a direct solve of the same twin --
@@ -46,7 +46,7 @@ kernels in it), times the CG operators at the final-3068 system, and
 prints
 
     {"einsum_mesh": {...}, "card": ...}
-    {"strips": {...}, "card": ...}
+    {"pair_gathers": {...}, "card": ...}
     {"checkpoint_baselines_formats": {...}, "eval": {...}, "card": ...}
     {"sc": {...}, "phase_walls_s": {...}}
     {"bsr_operators": [...]}
@@ -308,15 +308,14 @@ def check_k1(dev, errs: dict) -> None:
     and f64, slot counts ragged against the 64-slot tile, per (dtype, K)
     one stream of ~5,000 tiles, so that every block walks through both
     stages of its copy pipeline several times, and one full chunk of
-    the strips and obs reducers (width 64, the final-3068 leftover
-    stream's chunk: linearization._chunk_slots of its rows)."""
+    the obs reducer (at the obs index's run width, 64:
+    linearization._chunk_slots of its rows)."""
     import torch
 
     from rootba_tpu_torch.ops import fold
-    from rootba_tpu_torch.solver.linearization import (
-        PAIR_WIDTH,
-        _chunk_slots,
-    )
+    from rootba_tpu_torch.solver.linearization import _chunk_slots
+
+    W64 = 64  # bucketing.build_pair_csr's run width
 
     g = torch.Generator(device="cpu").manual_seed(5)
     for dtype in (torch.float32, torch.float64):
@@ -327,10 +326,10 @@ def check_k1(dev, errs: dict) -> None:
         rtol = atol = 1e-5 if dtype == torch.float32 else 1e-12
         itemsize = torch.empty((), dtype=dtype).element_size()
         for K in (2, 3):
-            chunk = _chunk_slots(9 * K * itemsize, PAIR_WIDTH) // PAIR_WIDTH
+            chunk = _chunk_slots(9 * K * itemsize, W64) // W64
             for W, R in [(w, 3 * max(1, 64 // w) + 5)
                          for w in (1, 2, 4, 8, 16, 32, 64)] + [
-                             (8, 40003), (PAIR_WIDTH, chunk)]:
+                             (8, 40003), (W64, chunk)]:
                 # wider runs scaled to W = 16's spread of run sums, so
                 # that the same tolerance holds the same relative error
                 scale = min(1.0, (16 / W) ** 0.5)
@@ -348,7 +347,7 @@ def check_k1(dev, errs: dict) -> None:
                 check(close(got, ref, rtol, atol),
                       f"K1 {dtype} K={K} W={W} R={R}: max abs err {err}")
         print(f"[phase 2] K1 {str(dtype)[6:]}: W 1..64, K 2 and 3, ragged "
-              f"tiles, a 40,003-run stream and a strips chunk of "
+              f"tiles, a 40,003-run stream and an obs chunk of "
               f"{chunk} runs at W = 64 (K = 3): max abs err {worst:.3e} "
               f"(tol rtol=atol={rtol:g})", flush=True)
 
@@ -723,9 +722,8 @@ def summarize_log(d: dict, tag: str) -> dict:
 # fused-W stream factors; then SCHUR_COMPLEMENT in dense, BSR and scatter
 # mode, under the DIAGONAL and POWER_SCHUR_COMPLEMENT preconditioners
 # and through the host LM driver, PoBA with dense E0, BSR E0 and the
-# implicit sweep, the strips (dense, and leftover-free in BSR mode) and
-# obs pair gathers and the W-free sandwich (forced), SC and PoBA on
-# strips and obs in BSR mode, and the einsum layout
+# implicit sweep, the obs pair gather (dense), SC and PoBA on obs in BSR
+# mode, and the einsum layout
 SC = dict(solver_type="SCHUR_COMPLEMENT")
 POBA = dict(solver_type="POWER_SCHUR_COMPLEMENT")
 SMALL_MODES = {
@@ -748,14 +746,9 @@ SMALL_MODES = {
     "poba_bsr": (dict(POBA, dense_rcs_max_cameras=4), {}, (True, False)),
     "poba_implicit": (dict(POBA, dense_rcs_max_cameras=0), {},
                       (True, False)),
-    "strips": (dict(pair_gather="strips"), {}, (True, False)),
-    "strips0_bsr": (dict(sqrt_rcs_mode="bsr", pair_gather="strips",
-                         strip_min_group=0), {}, (True, False)),
     "obs": (dict(pair_gather="obs"), {}, (True, False)),
-    "sandwich": (dict(pair_gather="strips", strip_min_group=0),
-                 dict(_SANDWICH_MIN_SLOTS=1), (True, False)),
-    "sc_strips_bsr": (dict(SC, dense_rcs_max_cameras=4,
-                           pair_gather="strips"), {}, (True, False)),
+    "sc_obs_bsr": (dict(SC, dense_rcs_max_cameras=4, pair_gather="obs"),
+                   {}, (True, False)),
     "poba_obs_bsr": (dict(POBA, dense_rcs_max_cameras=4, pair_gather="obs"),
                      {}, (True, False)),
     "einsum": (dict(kernel_layout="einsum"), {}, (True, False))}
@@ -806,10 +799,9 @@ def small_cross_check(only=None) -> None:
                 with patched(sqrt_flat, **globs), LoopSpy() as loops, \
                         FactorSpy() as factors:
                     s = bundle_adjust(p, opts, device=dev)
-                # the SC solvers, the einsum layout and the sandwich
-                # build no W factors
+                # the SC solvers and the einsum layout build no W
+                # factors
                 kinds = (set() if not sqrt_mode
-                         or "_SANDWICH_MIN_SLOTS" in globs
                          else {"fused" if globs else "tables"})
                 check(loops.loops == [kw.get("lm_loop", "fused")]
                       and set(factors.kinds) == kinds,
@@ -1138,12 +1130,12 @@ def k1_row(rec: "Recorder", errs: dict) -> dict:
 
 
 def k1_w64(rec: "Recorder") -> dict:
-    """K1 at the largest call of the strips route's checked final-3068
+    """K1 at the largest call of the obs route's checked final-3068
     attempt (a full chunk of slot rows at run width 64)."""
     from rootba_tpu_torch.ops import fold
 
     _, (a, c, W), _ = rec.largest["outer81_fold"]
-    check(W == 64, f"the strips route's largest K1 call has W = {W}")
+    check(W == 64, f"the obs route's largest K1 call has W = {W}")
     err = k1_held(a, c, W, fold.outer81_fold(a, c, W), "at W = 64")
     return dict(shape=f"M={a.shape[0]} K={a.shape[1] // 9} W={W} "
                       f"{str(a.dtype)[6:]}", max_abs_err=err,
@@ -1600,7 +1592,7 @@ class SharedSetup:
     twin is loaded as the CLI loads it (bench.py's preprocessing)."""
 
     BUILDERS = ("build_pair_stream", "build_cam_stream", "build_bsr_matvec",
-                "build_pair_strips", "build_cam_strips", "build_pair_csr")
+                "build_pair_csr")
 
     def __init__(self, path: Path):
         from rootba_tpu_torch.bal.bucketing import bucketize
@@ -1858,7 +1850,8 @@ def held_logs(what: str, log: dict, ref: dict, tol: float,
 def sc_poba_phase(lady: Path, traf: Path, final: Path,
                   final_setup: "SharedSetup", errs: dict) -> tuple:
     """Phases 10 (SCHUR_COMPLEMENT) and 11 (PoBA): the new solvers on the
-    ladybug-49, trafalgar-257 and final-3068 twins. Returns ({path:
+    ladybug-49, trafalgar-257 (SC also on the obs pair gather, held to
+    the default stream) and final-3068 twins. Returns ({path:
     readout}, {solver and precision: TwinCheck stats} of the final-3068
     checks); the f32 check's K1 error goes into errs."""
     import torch
@@ -1875,13 +1868,22 @@ def sc_poba_phase(lady: Path, traf: Path, final: Path,
             check((n[k] > 0) == (k == "outer81_fold"),
                   f"{tag}: kernel {k} launched {n[k]} times {n}")
 
-    # phase 10: bal_sc, dense RCS, through the CLI
-    for tag, bal, iters in (("sc_ladybug", lady, 20),
-                            ("sc_trafalgar", traf, 5)):
+    # phase 10: bal_sc, dense RCS, through the CLI; at trafalgar-257 on
+    # the default stream and on the obs pair gather, held to each other
+    logs = {}
+    for tag, bal, iters, flags in (("sc_ladybug", lady, 20, ()),
+                                   ("sc_trafalgar", traf, 5, ()),
+                                   ("sc_obs_trafalgar", traf, 5, OBS)):
         kernels.reset_launches()
-        _, out[tag] = timed_path(f"phase 10 {tag}", lambda: run_cli(
-            bal, iters, tag, solver=SCT))
+        logs[tag], out[tag] = timed_path(f"phase 10 {tag}", lambda: run_cli(
+            bal, iters, tag, flags, solver=SCT))
         only_k1(tag, dict(kernels.LAUNCHES))
+    rel = held_logs("sc trafalgar f32 obs vs stream",
+                    logs["sc_obs_trafalgar"], logs["sc_trafalgar"], 1e-4,
+                    cg=False)
+    out["sc_obs_trafalgar"]["rel_to_stream"] = rel
+    print(f"[phase 10] trafalgar-257 SC f32: obs vs stream costs within rel "
+          f"{rel:.2e} (tol 1e-4)", flush=True)
     # final-3068: BSR with the packed table, 3 timed f32 iterations
     with MatvecSpy(explicit_sc) as spy:
         kernels.reset_launches()
@@ -1958,16 +1960,9 @@ def sc_poba_phase(lady: Path, traf: Path, final: Path,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the strips and obs pair gathers and the W-free sandwich
+# phase 15: the obs pair gather against the default stream
 
-STRIPS = ("--pair-gather", "strips")
 OBS = ("--pair-gather", "obs")
-# the strips phase's wall budget (PERF.md section 2), and the least of it
-# that must be left for final-3068's strip_min_group=0 solve (its host
-# index build, 327,586 pair groups, its upload and one LM iteration:
-# 37.3 s of wall on an H100 machine) to run
-STRIPS_PHASE_S = 180.0
-STRIPS_ZERO_NEEDS_S = 60.0
 
 
 def final_state(problem) -> dict:
@@ -1991,30 +1986,22 @@ def held_states(what: str, got: dict, ref: dict, tol: float) -> float:
     return rel
 
 
-def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
-                 errs: dict) -> tuple:
-    """Phase 15: the "strips" and "obs" pair gathers and the W-free
-    sandwich. final-3068 (BSR, packed table, one load and bucketize): the
-    stream route in process (3 f32 and 2 f64 LM iterations), strips (auto
-    min_group: 16384 there) and obs through the CLI (3 f32) and in process
-    (2 f64); each f64 run held to the stream's at rel 1e-8 (costs, flags,
-    CG counts, final state), each f32 run within 1e-4 of the stream's f32
-    costs and 2e-3 of its f64 costs; every K1/K2 call of one strips f32
-    attempt held against its twin. trafalgar-257 (dense): strip_min_group
-    0 (per-bucket tables) with W tables and with the sandwich forced, f32
-    and f64, the sandwich held to the W tables at f64 rel 1e-8 and every
-    K1 call of one sandwich f64 attempt against its twin; SC with strips
-    and obs (f32, 5) and PoBA with strips (f64, 2); two f32 strips solves
-    bit-equal. final-3068 with strip_min_group=0, one f32 iteration, when
-    STRIPS_ZERO_NEEDS_S of the budget is left. Returns ({path: readout},
-    {run: TwinCheck stats}, the recorder of the checked strips attempt)."""
-    import torch
-
+def gathers_phase(final: Path, final_setup: "SharedSetup",
+                  errs: dict) -> tuple:
+    """Phase 15: the "obs" pair gather against the default "stream" at
+    final-3068 (BSR, packed table, one load and bucketize). Checks: the
+    stream in process and obs through the CLI (3 f32 LM iterations each),
+    both in process in f64 (2); obs's f64 run held to the stream's at rel
+    1e-8 (costs, flags, CG counts, final state), its f32 run within 1e-4
+    of the stream's f32 costs and 2e-3 of its f64 costs; every K1/K2
+    call of one obs f32 attempt held against its twin. Timing: after
+    those runs (each route's first use), four f32 solves in process, 3
+    LM iterations each, in the order stream, obs, obs, stream; a route's
+    warm seconds per LM iteration are the mean of its two. Returns
+    ({path: readout}, {run: TwinCheck stats}, the recorder of the
+    checked obs attempt)."""
     from rootba_tpu_torch.ops import kernels
-    from rootba_tpu_torch.solver import sqrt_flat
 
-    t0 = time.monotonic()
-    SCT, PBT = "SCHUR_COMPLEMENT", "POWER_SCHUR_COMPLEMENT"
     sqrt_k = ("outer81_fold", "w_build")
     out, checked = {}, {}
 
@@ -2027,7 +2014,7 @@ def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
 
     # final-3068: each route's f32 and f64 runs
     logs32, logs64, states64 = {}, {}, {}
-    for name, flags in (("stream", None), ("strips", STRIPS), ("obs", OBS)):
+    for name, flags in (("stream", None), ("obs", OBS)):
         kw = {} if flags is None else dict(pair_gather=flags[1])
         tag = f"{name}_final3068"
         built = final_setup.builds_s
@@ -2036,14 +2023,14 @@ def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
             if flags is None:
                 logs32[name], r = timed_path(
                     f"phase 15 {tag}", lambda: final_setup.solve(
-                        max_num_iterations=2))
+                        max_num_iterations=3))
             else:
                 # through the CLI, on the shared load's buckets and index
                 # builds (the CLI still reads the text)
                 with final_setup:
                     logs32[name], r = timed_path(
                         f"phase 15 {tag}", lambda: run_cli(
-                            final, 2, f"{tag}_f32", flags))
+                            final, 3, f"{tag}_f32", flags))
         r["launches"] = launched(tag, sqrt_k)
         r["host_index_builds_s"] = final_setup.builds_s - built
         check(spy.regimes and set(spy.regimes) == {False},
@@ -2058,131 +2045,53 @@ def strips_phase(traf: Path, final: Path, final_setup: "SharedSetup",
         states64[name] = final_state(final_setup.problem)
         print(f"[phase 15] {tag}: host index builds "
               f"{r['host_index_builds_s']:.3f} s (first use)", flush=True)
-    for name in ("strips", "obs"):
+    tag = "obs_final3068"
+    rel = held_logs(f"{tag} f64 vs stream", logs64["obs"],
+                    logs64["stream"], 1e-8)
+    srel = held_states(f"{tag} f64 vs stream", states64["obs"],
+                       states64["stream"], 1e-8)
+    rel32 = held_logs(f"{tag} f32 vs stream f32", logs32["obs"],
+                      logs32["stream"], 1e-4, cg=False)
+    rel64 = held_logs(f"{tag} f32 vs stream f64", logs32["obs"],
+                      logs64["stream"], 2e-3, cg=False)
+    out[tag].update(rel_to_stream_f32=rel32, rel_to_stream_f64=rel64)
+    out[f"{tag}_f64"].update(rel_to_stream=rel, state_rel=srel)
+    print(f"[phase 15] final-3068 obs vs stream: f64 flags and CG counts "
+          f"equal, costs within rel {rel:.2e}, final state {srel:.2e} "
+          f"(tol 1e-8); f32 costs within {rel32:.2e} of the stream's f32 "
+          f"(tol 1e-4) and {rel64:.2e} of its f64 (tol 2e-3)", flush=True)
+    # the warm timing: both routes the same way, each first and last once
+    warm = {"stream": [], "obs": []}
+    for name in ("stream", "obs", "obs", "stream"):
         tag = f"{name}_final3068"
-        rel = held_logs(f"{tag} f64 vs stream", logs64[name],
-                        logs64["stream"], 1e-8)
-        srel = held_states(f"{tag} f64 vs stream", states64[name],
-                           states64["stream"], 1e-8)
-        rel32 = held_logs(f"{tag} f32 vs stream f32", logs32[name],
-                          logs32["stream"], 1e-4, cg=False)
-        rel64 = held_logs(f"{tag} f32 vs stream f64", logs32[name],
-                          logs64["stream"], 2e-3, cg=False)
-        out[tag].update(rel_to_stream_f32=rel32, rel_to_stream_f64=rel64)
-        out[f"{tag}_f64"].update(rel_to_stream=rel, state_rel=srel)
-        print(f"[phase 15] final-3068 {name} vs stream: f64 flags and CG "
-              f"counts equal, costs within rel {rel:.2e}, final state "
-              f"{srel:.2e} (tol 1e-8); f32 costs within {rel32:.2e} of "
-              f"the stream's f32 (tol 1e-4) and {rel64:.2e} of its f64 "
-              f"(tol 2e-3)", flush=True)
-    # every K1/K2 call of one strips f32 attempt against its twin; the
+        kw = {} if name == "stream" else dict(pair_gather=name)
+        lg, r = timed_path(f"phase 15 {tag}_warm{len(warm[name])}",
+                           lambda: final_setup.solve(max_num_iterations=3,
+                                                     **kw))
+        held_logs(f"{tag} warm f32 vs its first f32", lg, logs32[name],
+                  1e-4, cg=False)
+        warm[name].append(r["s_per_iteration"])
+    for name, ts in warm.items():
+        out[f"{name}_final3068"].update(warm_s_per_iteration=ts,
+                                        warm_mean_s_per_iteration=sum(ts)
+                                        / len(ts))
+    print(f"[phase 15] final-3068 f32 warm, in process, 3 LM iterations "
+          f"each in the order stream, obs, obs, stream: s per LM iteration "
+          f"stream {out['stream_final3068']['warm_mean_s_per_iteration']:.4f}"
+          f" {warm['stream']}, obs "
+          f"{out['obs_final3068']['warm_mean_s_per_iteration']:.4f} "
+          f"{warm['obs']}", flush=True)
+    # every K1/K2 call of one obs f32 attempt against its twin; the
     # largest K1 call's inputs kept for the W = 64 timing
     with TwinCheck() as tw, Recorder() as rec:
-        final_setup.solve(pair_gather="strips", max_num_iterations=1)
-    print(f"[phase 15] final-3068 strips f32, 1 untimed LM iteration with "
+        final_setup.solve(pair_gather="obs", max_num_iterations=1)
+    print(f"[phase 15] final-3068 obs f32, 1 untimed LM iteration with "
           f"every kernel call held against its twin: "
-          f"{tw.report('final3068 strips f32')}", flush=True)
-    checked["strips_final3068_f32"] = tw.stats
+          f"{tw.report('final3068 obs f32')}", flush=True)
+    checked["obs_final3068_f32"] = tw.stats
     rec.k3_calls.clear()
-
-    # trafalgar-257, dense: per-bucket strip tables, W tables or sandwich
-    traf_setup = SharedSetup(traf)
-    zero = dict(pair_gather="strips", strip_min_group=0)
-    tl = {}
-    for use_double in (False, True):
-        p = "f64" if use_double else "f32"
-        for route, forced in (("strips0", False), ("sandwich", True)):
-            tag = f"{route}_trafalgar_{p}"
-            kernels.reset_launches()
-            with patched(sqrt_flat, **(dict(_SANDWICH_MIN_SLOTS=1)
-                                       if forced else {})):
-                tl[route, p], out[tag] = timed_path(
-                    f"phase 15 {tag}", lambda: traf_setup.solve(
-                        use_double=use_double, max_num_iterations=3,
-                        **zero))
-            # the sandwich builds no W tables: K1 only
-            out[tag]["launches"] = launched(
-                tag, ("outer81_fold",) if forced else sqrt_k)
-    rel = held_logs("trafalgar sandwich f64 vs W tables",
-                    tl["sandwich", "f64"], tl["strips0", "f64"], 1e-8)
-    rel32 = held_logs("trafalgar sandwich f32 vs W tables",
-                      tl["sandwich", "f32"], tl["strips0", "f32"], 1e-4,
-                      cg=False)
-    rel64 = held_logs("trafalgar strips0 f32 vs f64", tl["strips0", "f32"],
-                      tl["strips0", "f64"], 2e-3, cg=False)
-    out["sandwich_trafalgar_f64"]["rel_to_w_tables"] = rel
-    print(f"[phase 15] trafalgar-257 sandwich vs W tables: f64 flags and "
-          f"CG counts equal, costs within rel {rel:.2e} (tol 1e-8); f32 "
-          f"{rel32:.2e} (tol 1e-4); strips0 f32 vs f64 {rel64:.2e} (tol "
-          f"2e-3)", flush=True)
-    with patched(sqrt_flat, _SANDWICH_MIN_SLOTS=1), TwinCheck() as tw:
-        traf_setup.solve(use_double=True, max_num_iterations=1, **zero)
-    print(f"[phase 15] trafalgar-257 sandwich f64, 1 untimed LM iteration "
-          f"with every K1 call held against its twin: "
-          f"{tw.report('trafalgar sandwich f64', expect=('outer81_fold',))}",
-          flush=True)
-    checked["sandwich_trafalgar_f64"] = tw.stats
-    sc = {}
-    for tag, kw, iters in (
-            ("sc_strips_trafalgar", dict(solver_type=SCT,
-                                         pair_gather="strips"), 5),
-            ("sc_obs_trafalgar", dict(solver_type=SCT, pair_gather="obs"),
-             5),
-            ("poba_strips_trafalgar_f64", dict(solver_type=PBT,
-                                               pair_gather="strips",
-                                               use_double=True), 2)):
-        kernels.reset_launches()
-        sc[tag], out[tag] = timed_path(
-            f"phase 15 {tag}", lambda: traf_setup.solve(
-                max_num_iterations=iters, **kw))
-        out[tag]["launches"] = launched(tag, ("outer81_fold",))
-    rel = held_logs("trafalgar SC obs vs strips f32", sc["sc_obs_trafalgar"],
-                    sc["sc_strips_trafalgar"], 1e-4, cg=False)
-    print(f"[phase 15] trafalgar-257 SC f32: obs vs strips costs within rel "
-          f"{rel:.2e} (tol 1e-4)", flush=True)
-    # two f32 strips solves: the same CG counts, costs and final state,
-    # bit for bit (no scatter-add on this route)
-    runs = []
-    for _ in range(2):
-        lg = traf_setup.solve(pair_gather="strips", max_num_iterations=3)
-        runs.append((lg, final_state(traf_setup.problem)))
-    (a, sa), (b, sb) = runs
-    same = all((sa[k] == sb[k]).all() for k in sa)
-    check(a["cost"] == b["cost"] and same and a["linear_solver_iterations"]
-          == b["linear_solver_iterations"],
-          f"trafalgar strips f32 solved twice: costs {a['cost']} / "
-          f"{b['cost']}, CG {a['linear_solver_iterations']} / "
-          f"{b['linear_solver_iterations']}, states equal {same}")
-    print(f"[phase 15] trafalgar-257 strips f32 solved twice: the same CG "
-          f"counts {a['linear_solver_iterations'][1:]}, bit-equal costs "
-          f"{a['cost']} and final states", flush=True)
-    del traf_setup
-    torch.cuda.empty_cache()
-
-    # final-3068 with strip_min_group=0 (every pattern a strip group)
-    left = STRIPS_PHASE_S - (time.monotonic() - t0)
-    if left >= STRIPS_ZERO_NEEDS_S:
-        built = final_setup.builds_s
-        kernels.reset_launches()
-        _, r = timed_path("phase 15 strips0_final3068", lambda:
-                          final_setup.solve(max_num_iterations=1, **zero))
-        r["launches"] = launched("strips0_final3068", sqrt_k)
-        r["host_index_builds_s"] = final_setup.builds_s - built
-        out["strips0_final3068"] = r
-        print(f"[phase 15] final-3068 strip_min_group=0: host index builds "
-              f"{r['host_index_builds_s']:.3f} s", flush=True)
-    else:
-        out["strips0_final3068"] = dict(
-            skipped=f"{left:.1f} s of the phase's {STRIPS_PHASE_S:g} s "
-                    f"left, {STRIPS_ZERO_NEEDS_S:g} s needed")
-        print(f"[phase 15] final-3068 strip_min_group=0 not run: "
-              f"{out['strips0_final3068']['skipped']}", flush=True)
-    errs["outer81_fold"] = max(
-        errs["outer81_fold"],
-        checked["strips_final3068_f32"]["outer81_fold"]["max_abs_err"])
-    errs["w_build"] = max(
-        errs["w_build"],
-        checked["strips_final3068_f32"]["w_build"]["max_abs_err"])
+    for k in sqrt_k:
+        errs[k] = max(errs[k], tw.stats[k]["max_abs_err"])
     return out, checked, rec
 
 
@@ -3052,7 +2961,7 @@ def eval_rehearsal_logs(lady: Path) -> None:
 
 
 PHASES = ("kernels", "ladybug", "trafalgar126", "trafalgar", "small",
-          "final3068", "determinism", "sc", "strips", "einsum", "mesh",
+          "final3068", "determinism", "sc", "gathers", "einsum", "mesh",
           "checkpoint", "baselines", "formats", "eval", "final4585",
           "traced")
 
@@ -3130,12 +3039,12 @@ def partial_run(only, want, lap, dev) -> int:
     # the twins each phase reads
     need = {"ladybug": ("ladybug", "sc", "checkpoint", "baselines",
                         "formats", "eval"),
-            "trafalgar": ("trafalgar", "sc", "determinism", "strips"),
-            "final3068": ("final3068", "sc", "determinism", "strips",
+            "trafalgar": ("trafalgar", "sc", "determinism"),
+            "final3068": ("final3068", "sc", "determinism", "gathers",
                           "einsum", "checkpoint", "formats")}
     lady, traf, final = (write_twin(n) if any(map(want, ps)) else None
                          for n, ps in need.items())
-    if any(map(want, ("determinism", "sc", "strips", "einsum"))):
+    if any(map(want, ("determinism", "sc", "gathers", "einsum"))):
         final_setup = SharedSetup(final)
         if want("determinism"):
             determinism_phase(final_setup, traf)
@@ -3143,8 +3052,8 @@ def partial_run(only, want, lap, dev) -> int:
         if want("sc"):
             sc_poba_phase(lady, traf, final, final_setup, errs)
             lap("phases 10-11")
-        if want("strips"):
-            strips_phase(traf, final, final_setup, errs)
+        if want("gathers"):
+            gathers_phase(final, final_setup, errs)
             lap("phase 15")
         if want("einsum"):
             einsum_phase(final, final_setup)
@@ -3431,9 +3340,9 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     sc_out, sc_checked = sc_poba_phase(lady, traf, final, final_setup, errs)
     lap("phases 10-11")
 
-    # phase 15: the strips and obs pair gathers, the W-free sandwich
-    strips_out, strips_checked, strips_rec = strips_phase(
-        traf, final, final_setup, errs)
+    # phase 15: the obs pair gather against the default stream
+    gathers_out, gathers_checked, obs_rec = gathers_phase(
+        final, final_setup, errs)
     lap("phase 15")
 
     # phases 16 and 17: the einsum layout, the landmark mesh
@@ -3489,15 +3398,10 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             ("poba_final3068_f64", final, 2, ("outer81_fold",), (),
              lambda: final_setup.solve(solver_type=PBT, use_double=True,
                                        max_num_iterations=2)),
-            # the strips and obs pair gathers: K1 and K2 (and the padded
-            # grid's K3 at ladybug); final-3068 on phase 15's index builds
-            ("strips_ladybug", lady, 2, sqrt_k + ("pcg_dense_cluster",),
-             STRIPS, None),
+            # the obs pair gather: K1 and K2 (and the padded grid's K3
+            # at ladybug); final-3068 on phase 15's index builds
             ("obs_ladybug", lady, 2, sqrt_k + ("pcg_dense_cluster",), OBS,
              None),
-            ("strips_final3068", final, 1, sqrt_k, (),
-             lambda: final_setup.solve(pair_gather="strips",
-                                       max_num_iterations=1)),
             ("obs_final3068", final, 1, sqrt_k, (),
              lambda: final_setup.solve(pair_gather="obs",
                                        max_num_iterations=1))):
@@ -3566,19 +3470,13 @@ def full_run(smi, lap, walls, dev, t0) -> int:
     rows[0]["max_abs_err_f64"] = max(
         rows[0]["max_abs_err_f64"],
         sc_checked["poba_float64"]["outer81_fold"]["max_abs_err"])
-    # the strips route (phase 15): every K1/K2 call of its checked
-    # attempts, and K1 timed at its largest call, run width 64
-    rows[0]["strips_checked"] = {
-        k: st["outer81_fold"] for k, st in strips_checked.items()}
-    rows[1]["strips_checked"] = {
-        "strips_final3068_f32":
-            strips_checked["strips_final3068_f32"]["w_build"]}
-    rows[0]["max_abs_err_f64"] = max(
-        rows[0]["max_abs_err_f64"],
-        strips_checked["sandwich_trafalgar_f64"]["outer81_fold"][
-            "max_abs_err"])
-    rows[0]["w64"] = k1_w64(strips_rec)
-    strips_rec = None
+    # the obs route (phase 15): every K1/K2 call of its checked attempt,
+    # and K1 timed at its largest call, run width 64
+    for r in rows[:2]:
+        r["obs_checked"] = {
+            k: st[r["name"]] for k, st in gathers_checked.items()}
+    rows[0]["w64"] = k1_w64(obs_rec)
+    obs_rec = None
     rows.append(k3_row("pcg_dense_cluster", rec.largest["pcg_dense"], errs,
                        lady_k3, compare_grid=True))
     rows.append(k3_row("pcg_dense_half", rec_m.largest["pcg_dense"], errs,
@@ -3622,17 +3520,17 @@ def full_run(smi, lap, walls, dev, t0) -> int:
             r["k1_device_ms_per_attempt"] = ms["outer81_fold"] / attempts[p]
         r["card"] = smi
     lap("sc line")
-    # the strips and obs routes at final-3068: K1/K2 launches and device
+    # the stream and obs routes at final-3068: K1/K2 launches and device
     # time per LM attempt from their counted solves (phase 6)
-    for route in ("strips", "obs"):
-        p = f"{route}_final3068"
+    for tag, p in (("stream_final3068", "final3068"),
+                   ("obs_final3068", "obs_final3068")):
         n, ms = paths[p]
-        strips_out[p]["launches_per_attempt"] = {
+        gathers_out[tag]["launches_per_attempt"] = {
             k: v / attempts[p] for k, v in n.items() if v}
-        strips_out[p]["device_ms_per_attempt"] = {
+        gathers_out[tag]["device_ms_per_attempt"] = {
             k: ms[k] / attempts[p] for k, v in n.items() if v}
     print(json.dumps({"einsum_mesh": layout_out, "card": smi}))
-    print(json.dumps({"strips": strips_out, "card": smi}))
+    print(json.dumps({"pair_gathers": gathers_out, "card": smi}))
     print(json.dumps({"checkpoint_baselines_formats": host_out,
                       "eval": eval_out, "card": smi}))
     print(json.dumps({"sc": sc_out, "phase_walls_s": walls}))

@@ -5,12 +5,11 @@ the port uses: `bucketize`, the camera CSR index of the per-camera
 gather-reduce (`CamCsr`, built on first use), the indices of the
 explicit reduced camera system's pair and camera gathers -- PairStream /
 CamStream ("stream", with the fixed-order reduction of their runs,
-`RunTree`), PairStrips / CamStrips ("strips") and PairCsr ("obs") --
-the BsrMatvec index of its block-sparse operator, and
-`scatter_landmarks`. Landmarks are
-grouped by observation count into a small set of buckets; each bucket
-is a struct-of-arrays batch with a static per-landmark obs count
-(padded slots masked).
+`RunTree`) and PairCsr ("obs") -- the BsrMatvec index of its
+block-sparse operator, and `scatter_landmarks`. Landmarks are grouped by
+observation count into a small set of buckets; each bucket is a
+struct-of-arrays batch with a static per-landmark obs count (padded
+slots masked).
 
 Exact buckets for nobs < bucket_pow2_from (default 9, mirroring the
 reference's static specializations), power-of-two padded buckets above.
@@ -448,248 +447,6 @@ def build_pair_csr(buckets, num_cameras: int, width: int = 64,
     )
 
 
-class PairStrips(NamedTuple):
-    """Landmark-strip formulation of the strict-pair index: the
-    "strips" pair gather (see PairCsr for the role).
-
-    Slots are grouped by (bucket, within-landmark pattern (i, j)); a
-    group lists the landmark rows of its slots, pair-sorted and padded
-    to width-aligned per-pair runs, so that a slot's two sides are the
-    i and j slots of its landmark's row in the bucket's [L_b, n*K]
-    table. Non-canonical slots (cam_i > cam_j) carry a swap flag and
-    take their sides the other way round. Groups below `min_group`
-    slots route through a per-observation (wi, wj) leftover stream,
-    gathered like PairCsr; its run rows follow the groups' rows on the
-    shared row axis, and idx2 sums each pair's rows.
-    """
-
-    # per (bucket, i, j) group, flattened in deterministic order:
-    group_bucket: Tuple[int, ...]  # bucket index of each group
-    group_i: Tuple[int, ...]  # first-side obs slot within the landmark
-    group_j: Tuple[int, ...]  # second-side obs slot
-    lm_idx: Tuple[np.ndarray, ...]  # per group [g_pad] int32 landmark
-    #   rows into the bucket's [L_b] axis, pair-sorted, pad = L_b
-    swap: Tuple[np.ndarray, ...]  # per group [g_pad] bool
-    wi_idx: np.ndarray  # [R_obs, width] leftover-slot side-1 flat obs
-    #   index, canonical order (pad = O)
-    wj_idx: np.ndarray  # [R_obs, width] side 2
-    idx2: np.ndarray  # [P, vmax] int32 global run-row ids (pad = R)
-    pair_row: np.ndarray  # [P] int32 (<= pair_col)
-    pair_col: np.ndarray  # [P] int32
-    up_idx: np.ndarray  # [G*G] int32 (see PairCsr)
-    lo_idx: np.ndarray  # [G*G] int32
-
-
-def build_pair_strips(buckets, num_cameras: int, width: int = 64,
-                      grid_n: int | None = None,
-                      min_group: int = 16384,
-                      dense_grid: bool = True) -> PairStrips:
-    """Build the landmark-strip strict-pair index (see PairStrips).
-    dense_grid=False skips the [G*G] up_idx/lo_idx maps (BSR mode).
-
-    The JAX package's builder's arrays, built by whole-bucket array
-    passes where it loops over the n(n-1)/2 within-landmark patterns of
-    each bucket (523,776 at n = 1024): a bucket's valid slots in
-    pattern-major, landmark-ascending order; the slots of patterns of
-    at least min_group slots sorted stably by (pattern, pair code) and
-    padded to per-pair runs all at once; the others' slots, in the same
-    order, the leftover stream's."""
-    N = num_cameras
-    G = grid_n if grid_n is not None else N
-
-    obs_off = 0
-    groups = []  # per bucket: (bucket, pattern i, j, slots, L) of groups
-    big, left = [], []  # per bucket: (code, lm, swap) / (code, wi, wj)
-    for bi, b in enumerate(buckets):
-        L, n = b.cam_idx.shape
-        iu, ju = np.triu_indices(n, k=1)
-        if iu.size:
-            t, lm = np.nonzero((b.mask[:, iu] & b.mask[:, ju]).T)
-            ci = b.cam_idx[lm, iu[t]].astype(np.int64)
-            cj = b.cam_idx[lm, ju[t]].astype(np.int64)
-            code = np.minimum(ci, cj) * N + np.maximum(ci, cj)
-            swap = ci > cj
-            counts = np.bincount(t, minlength=iu.size)
-            gt = np.nonzero((counts >= min_group) & (counts > 0))[0]
-            groups.append((np.full(gt.size, bi, np.int64), iu[gt], ju[gt],
-                           counts[gt], np.full(gt.size, L, np.int64)))
-            is_big = counts[t] >= min_group
-            # per group a stable sort by pair code (code < N*N, t < n*n)
-            sel = np.nonzero(is_big)[0]
-            sel = sel[np.argsort(t[sel] * (N * N) + code[sel],
-                                 kind="stable")]
-            big.append((code[sel], lm[sel], swap[sel]))
-            sel = np.nonzero(~is_big)[0]
-            oi = obs_off + lm[sel] * n + iu[t[sel]]
-            oj = obs_off + lm[sel] * n + ju[t[sel]]
-            sw = swap[sel]
-            left.append((code[sel], np.where(sw, oj, oi),
-                         np.where(sw, oi, oj)))
-        obs_off += L * n
-    num_obs_slots = obs_off
-
-    def cat(parts, k, dtype=np.int64):
-        return (np.concatenate([x[k] for x in parts]) if parts
-                else np.zeros(0, dtype))
-
-    unique = np.unique(np.concatenate([cat(big, 0), cat(left, 0)]))
-    P = unique.size
-
-    # the groups: each (group, pair) run padded to whole runs of `width`
-    # (pads: landmark row L, the gather's zero row, and no swap)
-    gb, gi, gj, gcount, gL = (cat(groups, k) for k in range(5))
-    code, lm, swap = cat(big, 0), cat(big, 1), cat(big, 2, bool)
-    gid = np.repeat(np.arange(gcount.size, dtype=np.int64), gcount)
-    pid = np.searchsorted(unique, code)
-    new = np.ones(gid.size, bool)
-    new[1:] = (gid[1:] != gid[:-1]) | (pid[1:] != pid[:-1])
-    starts = np.nonzero(new)[0]
-    run_len = np.diff(np.append(starts, gid.size))
-    padded = (run_len + width - 1) // width * width
-    run_gid = gid[starts]
-    dst = (np.repeat(np.cumsum(padded) - padded - starts, run_len)
-           + np.arange(gid.size, dtype=np.int64))
-    out_lm = np.repeat(gL[run_gid], padded)
-    out_lm[dst] = lm
-    out_sw = np.zeros(out_lm.size, bool)
-    out_sw[dst] = swap
-    cuts = np.cumsum(np.bincount(run_gid, weights=padded,
-                                 minlength=gcount.size).astype(np.int64))
-    lm_idx_groups = np.split(out_lm.astype(np.int32), cuts[:-1]) \
-        if gcount.size else []
-    swap_groups = np.split(out_sw, cuts[:-1]) if gcount.size else []
-    row_pair = [np.repeat(pid[starts], padded // width)]
-
-    # leftover per-observation stream (pair-sorted, width-padded)
-    lcode = cat(left, 0)
-    if lcode.size:
-        order = np.argsort(lcode, kind="stable")
-        lpid = np.searchsorted(unique, lcode[order])
-        (wi_pad, wj_pad), rp = _pad_runs(
-            lpid, width, (cat(left, 1)[order], num_obs_slots),
-            (cat(left, 2)[order], num_obs_slots))
-        wi_idx = wi_pad.reshape(-1, width).astype(np.int32)
-        wj_idx = wj_pad.reshape(-1, width).astype(np.int32)
-        row_pair.append(rp)
-    else:
-        wi_idx = np.zeros((0, width), np.int32)
-        wj_idx = np.zeros((0, width), np.int32)
-    gb, gi, gj = (tuple(x.tolist()) for x in (gb, gi, gj))
-
-    row_pair = (np.concatenate(row_pair) if row_pair
-                else np.zeros(0, np.int64))
-    R = row_pair.size
-    order = np.argsort(row_pair, kind="stable")
-    # idx2: rows of each pair (rows stay in emission order; idx2
-    # gathers them per pair)
-    counts = np.bincount(row_pair, minlength=P).astype(np.int64)
-    vmax = max(int(counts.max(initial=1)), 1)
-    idx2 = np.full((P, vmax), R, dtype=np.int64)
-    sorted_rows = order
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    within = (np.arange(R, dtype=np.int64) - np.repeat(starts, counts))
-    idx2[row_pair[sorted_rows], within] = sorted_rows
-
-    rows = (unique // N).astype(np.int64)
-    cols = (unique % N).astype(np.int64)
-    if dense_grid:
-        up_idx = np.full(G * G, P, dtype=np.int64)
-        up_idx[rows * G + cols] = np.arange(P, dtype=np.int64)
-        lo_idx = np.full(G * G, P, dtype=np.int64)
-        lo_idx[cols * G + rows] = np.arange(P, dtype=np.int64)
-    else:
-        up_idx = lo_idx = np.zeros(0, dtype=np.int64)
-
-    return PairStrips(
-        group_bucket=tuple(gb), group_i=tuple(gi), group_j=tuple(gj),
-        lm_idx=tuple(lm_idx_groups), swap=tuple(swap_groups),
-        wi_idx=wi_idx, wj_idx=wj_idx,
-        idx2=idx2.astype(np.int32),
-        pair_row=rows.astype(np.int32), pair_col=cols.astype(np.int32),
-        up_idx=up_idx.astype(np.int32), lo_idx=lo_idx.astype(np.int32),
-    )
-
-
-class CamStrips(NamedTuple):
-    """Landmark-strip formulation of the per-camera reduce (the same
-    grouping as PairStrips): slots are grouped by (bucket, within-
-    landmark slot i); within a group they are sorted by camera and
-    padded to width-aligned single-camera runs, and idx2 sums each
-    camera's rows. Groups below `min_group` slots route through a
-    per-observation leftover stream (as in CamCsr); its run rows follow
-    the groups' rows on the shared row axis.
-    """
-
-    group_bucket: Tuple[int, ...]  # bucket index of each strip group
-    group_i: Tuple[int, ...]  # obs slot within the landmark
-    lm_idx: Tuple[np.ndarray, ...]  # per group [g_pad] int32 landmark
-    #   rows into the bucket's [L_b] axis, camera-sorted, pad = L_b
-    wi_idx: np.ndarray  # [R_obs, width] leftover flat obs index (pad=O)
-    idx2: np.ndarray  # [N, vmax] int32 global run-row ids (pad = R)
-
-
-def build_cam_strips(buckets, num_cameras: int, width: int = 64,
-                     min_group: int = 16384) -> CamStrips:
-    """Build the landmark-strip per-camera reduce index (see CamStrips)."""
-    recs = []  # big groups: (cam_sorted, lm_sorted)
-    meta = []
-    left = []  # small groups: (cam, flat_obs_pos) per slot
-    obs_off = 0
-    for bi, b in enumerate(buckets):
-        L, n = b.cam_idx.shape
-        for i in range(n):
-            valid = b.mask[:, i]
-            lm = np.nonzero(valid)[0].astype(np.int64)
-            if lm.size == 0:
-                continue
-            cam = b.cam_idx[lm, i].astype(np.int64)
-            if lm.size >= min_group:
-                order = np.argsort(cam, kind="stable")
-                recs.append((cam[order], lm[order]))
-                meta.append((bi, i, L))
-            else:
-                left.append((cam, obs_off + lm * n + i))
-        obs_off += L * n
-    num_obs_slots = obs_off
-
-    lm_groups, gb, gi = [], [], []
-    row_cam = []  # camera of each global run row, in emission order
-    for (cam, lm), (bi, i, L) in zip(recs, meta):
-        (out_lm,), rc = _pad_runs(cam, width, (lm, L))
-        lm_groups.append(out_lm.astype(np.int32))
-        gb.append(bi)
-        gi.append(i)
-        row_cam.append(rc)
-
-    if left:
-        lcam = np.concatenate([lv[0] for lv in left])
-        lpos = np.concatenate([lv[1] for lv in left])
-        order = np.argsort(lcam, kind="stable")
-        (wi_pad,), rc = _pad_runs(
-            lcam[order], width, (lpos[order], num_obs_slots))
-        wi_idx = wi_pad.reshape(-1, width).astype(np.int32)
-        row_cam.append(rc)
-    else:
-        wi_idx = np.zeros((0, width), np.int32)
-
-    row_cam = (np.concatenate(row_cam) if row_cam
-               else np.zeros(0, np.int64))
-    R = row_cam.size
-    counts = np.bincount(row_cam, minlength=num_cameras).astype(np.int64)
-    vmax = max(int(counts.max(initial=1)), 1)
-    idx2 = np.full((num_cameras, vmax), R, dtype=np.int64)
-    order = np.argsort(row_cam, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    within = (np.arange(R, dtype=np.int64)
-              - np.repeat(starts, counts))
-    idx2[row_cam[order], within] = order
-
-    return CamStrips(
-        group_bucket=tuple(gb), group_i=tuple(gi),
-        lm_idx=tuple(lm_groups), wi_idx=wi_idx,
-        idx2=idx2.astype(np.int32))
-
-
 class BsrMatvec(NamedTuple):
     """Camera-major index for the block-sparse RCS matvec.
 
@@ -970,9 +727,9 @@ def build_pair_stream(buckets, num_cameras: int, width: int = 16,
 
 class CamStream(NamedTuple):
     """Per-camera reduce in the PairStream formulation (self-slots,
-    runs keyed by camera): replaces the CamStrips per-(bucket, i)
-    groups whose whole-row gathers pay n x bandwidth on wide buckets
-    (a 684-wide final bucket would read its table 684 times)."""
+    runs keyed by camera), in place of per-(bucket, slot column) groups
+    whose whole-row gathers pay n x bandwidth on wide buckets (a
+    684-wide final bucket would read its table 684 times)."""
 
     width: int
     num_cameras: int

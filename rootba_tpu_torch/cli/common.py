@@ -75,6 +75,7 @@ def add_options_to_parser(parser: argparse.ArgumentParser, obj, prefix=""):
                                 help=help_text)
         else:
             parser.add_argument(flag, dest=dest, type=str, default=None,
+                                choices=(f.metadata or {}).get("choices"),
                                 help=help_text)
 
 

@@ -200,7 +200,8 @@ class SolverOptions:
                     "cross-checks) or 'lm' (plain-numpy LM running the "
                     "reference's exact lambda/nu/rho protocol with "
                     "dense Schur-complement normal equations; "
-                    "step-comparable per-iteration trajectories)")
+                    "step-comparable per-iteration trajectories)",
+        choices=("trf", "lm"))
 
     use_double: bool = opt(True, help="float64 instead of float32")
     use_householder_marginalization: bool = opt(
@@ -226,14 +227,16 @@ class SolverOptions:
         "flat", help="SquareRoot solver data layout: 'flat' (default) "
                      "uses 2-D per-bucket landmark-row tables; 'einsum' "
                      "uses per-bucket [L,n,2,9] batched tensors (used "
-                     "automatically for multi-device meshes)")
+                     "automatically for multi-device meshes)",
+        choices=("flat", "einsum"))
     lm_loop: str = opt(
         "auto", help="'fused' runs the LM attempt loop (one host sync "
                      "per attempt); 'host' runs the reference's "
                      "driver (an outer loop per linearization, "
                      "backtracking attempts inside, the same attempt "
                      "body); 'auto' picks fused up to "
-                     "fused_obs_threshold observations and host above")
+                     "fused_obs_threshold observations and host above",
+        choices=("auto", "fused", "host"))
     fused_obs_threshold: int = opt(
         2_000_000, help="observation count above which lm_loop='auto' "
                         "picks the host driver")
@@ -241,7 +244,8 @@ class SolverOptions:
         "fast", help="'measured' runs the host LM loop whatever lm_loop "
                      "says; 'fast' (default) leaves the choice to "
                      "lm_loop. Stage times come from CUDA events at the "
-                     "stage boundaries in either mode")
+                     "stage boundaries in either mode",
+        choices=("fast", "measured"))
     num_devices: int = opt(
         0, help="number of ranks of the process group to shard landmark "
                 "blocks over (parallel/mesh.py): 0 = every rank, 1 = no "
@@ -268,35 +272,18 @@ class SolverOptions:
                        "per-bucket sub-streams of camera-sorted "
                        "landmarks, gathers from bounded sub-tables and "
                        "folds runs -- cost O(slots) regardless of "
-                       "covisibility regularity; 'strips' groups slots "
-                       "by within-landmark pattern, which degrades on "
-                       "irregular/clustered structure (a wide bucket has "
-                       "n(n-1)/2 patterns) and is kept for comparison; "
-                       "'obs' gathers the two per-observation rows from "
-                       "the flat [O,27] strip (simpler, slower at "
-                       ">1M-observation scale)")
-    strip_min_group: int = opt(
-        -1, help="strips pair/camera gather: within-landmark patterns "
-                 "with fewer slots than this route through a "
-                 "per-observation leftover stream instead of their own "
-                 "strip group. 0 = no leftover stream; every pattern is "
-                 "a strip group and all strip tables stay per bucket "
-                 "(no flat [O, F] per-observation tables), at the cost "
-                 "of many small groups on small and mid-size problems. "
-                 "-1 (default) = auto: leftover stream (16384) up to "
-                 "strip_auto_obs_threshold observations, per-bucket "
-                 "strips (0) above")
-    strip_auto_obs_threshold: int = opt(
-        4_000_000, help="observation count above which "
-                        "strip_min_group=-1 (auto) switches from the "
-                        "leftover-stream routing to all-per-bucket strip "
-                        "tables")
+                       "covisibility regularity; 'obs' gathers the two "
+                       "per-observation rows from the flat [O,27] strip "
+                       "and sums each pair's runs through a second-level "
+                       "index",
+        choices=("stream", "obs"))
     pallas_cg: str = opt(
         "auto", help="run the whole dense-RCS PCG loop as one CUDA "
                      "kernel (K3, csrc/cg_dense.cu): 'auto' in float32 "
                      "dense mode when the 128-lane padded system is at "
                      "most 12 MB (N <= 128 cameras); 'off' disables; "
-                     "'on' forces it in float32 dense mode")
+                     "'on' forces it in float32 dense mode",
+        choices=("auto", "on", "off"))
     sqrt_rcs_mode: str = opt(
         "auto", help="SQUARE_ROOT CG operator: 'implicit' applies "
                      "(Q2'Jp)'(Q2'Jp) matrix-free per CG iteration; "
@@ -306,7 +293,8 @@ class SolverOptions:
                      "landmark and runs CG on the block-sparse "
                      "operator; 'auto' picks dense when num_cameras <= "
                      "dense_rcs_max_cameras, bsr above it, implicit "
-                     "under a forced JACOBI preconditioner")
+                     "under a forced JACOBI preconditioner",
+        choices=("auto", "dense", "implicit", "bsr"))
     bsr_pack_max_gb: float = opt(
         4.0, help="BSR CG: expand the block table once per stage2 into "
                   "the run-major packed table (both directions of every "
@@ -329,28 +317,8 @@ class SolverOptions:
     def __post_init__(self):
         # free-form string options: a typo must error, not silently
         # fall back to default behavior
-        allowed = {"baseline_method": ("trf", "lm"),
-                   "lm_loop": ("auto", "fused", "host"),
-                   "timing_mode": ("fast", "measured"),
-                   "kernel_layout": ("flat", "einsum"),
-                   "pair_gather": ("stream", "strips", "obs"),
-                   "pallas_cg": ("auto", "on", "off"),
-                   "sqrt_rcs_mode": ("auto", "dense", "implicit", "bsr")}
-        for name, values in allowed.items():
-            v = getattr(self, name, None)
-            if v is not None and v not in values:
-                raise ValueError(
-                    f"solver option '{name}={v!r}' is not one of "
-                    f"{values}")
-
-    def effective_strip_min_group(self, num_observations: int) -> int:
-        """Resolve strip_min_group=-1 (auto) by problem size: the
-        leftover-stream routing (16384) up to strip_auto_obs_threshold
-        observations, the all-strips routing (0) above."""
-        if self.strip_min_group >= 0:
-            return self.strip_min_group
-        return (16384 if num_observations <= self.strip_auto_obs_threshold
-                else 0)
+        for f in fields(self):
+            _check_choice(f, getattr(self, f.name), f.name)
 
     def use_projection_validity_check(self) -> bool:
         return self.optimized_cost != OptimizedCost.ERROR
@@ -416,6 +384,15 @@ def _convert(value, typ, path):
     return value
 
 
+def _check_choice(f, value, path: str) -> None:
+    """ValueError naming the allowed values when a string option with
+    `choices` holds another value."""
+    values = (f.metadata or {}).get("choices")
+    if values is not None and value not in values:
+        raise ValueError(f"option {path}={value!r} is not one of "
+                         f"{values}")
+
+
 def update_from_dict(obj, d: Dict[str, Any], path="", unknown=None):
     """In-place update from a (possibly partial) nested dict.
 
@@ -436,7 +413,9 @@ def update_from_dict(obj, d: Dict[str, Any], path="", unknown=None):
                 raise ValueError(f"option {p}: expected table/dict")
             update_from_dict(cur, v, p, unknown)
         else:
-            setattr(obj, k, _convert(v, type(cur) if not isinstance(cur, StrEnum) else type(cur), p))
+            v = _convert(v, type(cur), p)
+            _check_choice(f, v, p)
+            setattr(obj, k, v)
     return obj
 
 

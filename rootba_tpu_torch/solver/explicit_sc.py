@@ -13,7 +13,7 @@ sc/linearization_power_sc.hpp) on one device:
   assembled as the dense z-space matrix up to dense_rcs_max_cameras
   (sc_assemble_dense), as the BSR half/packed table above it
   (sc_assemble_bsr), both through the reducers of the pair gather that
-  `pair_gather` names (stream, strips or obs), whose block products are
+  `pair_gather` names (stream or obs), whose block products are
   kernel K1 (pair block (c_i, c_j) = -(Hll^-1 T)_i' T_j with T = Jl'Jp;
   diagonal Jp'Jp - (Hll^-1 T)' T per camera), or, with
   dense_rcs_max_cameras=0, by the segment-sum scatter over unique
@@ -54,11 +54,9 @@ from rootba_tpu_torch.solver.linearization import (
     build_pair_index,
     bsr_symmetric_fits,
     bsr_table_matvec,
-    cam_parts_mode,
-    cam_reduce_strips,
+    cam_reduce_stream,
     compute_error_buckets,
     csr_cam_reduce,
-    pair_parts_mode,
     segment_sum,
 )
 
@@ -172,13 +170,12 @@ class SCStage2(NamedTuple):
 
 
 def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
-                   cam_strips=None, mesh=None):
+                   cam_stream=None, mesh=None):
     """Per-bucket damped Hll^-1 and the RCS right-hand side
     b = Jp'(r - Jl Hll^-1 Jl' r) (landmark_block stage(),
     sc/landmark_block.hpp:342-364), reduced per camera through the
-    camera stream or strips, else the camera CSR, else a segment sum.
+    camera stream, else the camera CSR, else a segment sum.
     Returns (b, Hll_invs)."""
-    parts = cam_parts_mode(cam_strips)
     b = lins[0].Jp.new_zeros((num_cameras, P9))
     b_parts = []
     Hll_invs = []
@@ -192,17 +189,15 @@ def sc_rhs_and_hll(lins, buckets, lam, num_cameras, cam_csr=None,
         hbl = torch.einsum("lcd,ld->lc", Hll_inv, bl)
         rr = lin.r - torch.einsum("lnrc,lc->lnr", lin.Jl, hbl)
         yb = torch.einsum("lnrj,lnr->lnj", lin.Jp, rr)
-        if parts:
+        if cam_stream is not None:
             b_parts.append(yb.reshape(L, n * P9))
-        elif cam_strips is not None or cam_csr is not None:
+        elif cam_csr is not None:
             b_parts.append(yb.reshape(-1, P9))
         else:
             b = b + segment_sum(yb.reshape(-1, P9), bucket.cam_idx.reshape(-1),
                                 num_cameras)
-    if parts:
-        b = cam_reduce_strips(tuple(b_parts), buckets, cam_strips)
-    elif cam_strips is not None:
-        b = cam_reduce_strips(torch.cat(b_parts, dim=0), buckets, cam_strips)
+    if cam_stream is not None:
+        b = cam_reduce_stream(tuple(b_parts), buckets, cam_stream)
     elif cam_csr is not None:
         b = csr_cam_reduce(b_parts, cam_csr, num_cameras)
     return all_reduce_sum(b, mesh), tuple(Hll_invs)
@@ -242,14 +237,11 @@ def sc_assemble(lins, buckets, pairs: PairStructure, lam, num_cameras,
                     Hll_inv=tuple(Hll_invs), lam=lam)
 
 
-def _sc_strip_factors(lins, Hll_invs, pair_idx, cam_strips,
-                      with_jp: bool = True):
+def _sc_strip_factors(lins, Hll_invs, cam_stream, with_jp: bool = True):
     """(HT, T, Jp) factors of the SC/E0 assemblies: T = Jl'Jp and
     HT = Hll^-1 T, per-bucket [L, n*27] tables (col c*9+j) and Jp
-    [L, n*18] (col r*9+j) where both reducers take per-bucket tables
-    (stream, or leftover-free strips), else flat [O, 3, 9] / [O, 2, 9]
-    arrays (obs, strips with a leftover stream)."""
-    parts = cam_parts_mode(cam_strips) and pair_parts_mode(pair_idx)
+    [L, n*18] (col r*9+j) on the stream route (cam_stream given), else
+    flat [O, 3, 9] / [O, 2, 9] arrays (the obs route)."""
     T_parts, HT_parts, Jp_parts = [], [], []
     for lin, Hll_inv in zip(lins, Hll_invs):
         L, n = lin.Jp.shape[0], lin.Jp.shape[1]
@@ -260,7 +252,7 @@ def _sc_strip_factors(lins, Hll_invs, pair_idx, cam_strips,
         T_parts.append(T.reshape(L, n * 3 * P9))
         HT_parts.append(HT.reshape(L, n * 3 * P9))
         Jp_parts.append(lin.Jp.reshape(L, n * 2 * P9))
-    if parts:
+    if cam_stream is not None:
         return (tuple(HT_parts), tuple(T_parts),
                 tuple(Jp_parts) if with_jp else None)
 
@@ -271,36 +263,36 @@ def _sc_strip_factors(lins, Hll_invs, pair_idx, cam_strips,
             flat(Jp_parts, 2) if with_jp else None)
 
 
-def sc_assemble_dense(lins, buckets, pairs, cam_strips, lam, num_cameras,
+def sc_assemble_dense(lins, buckets, pairs, cam_stream, lam, num_cameras,
                       cam_csr=None):
     """Dense-RCS SC assembly through the pair and camera reducers of
-    `pairs` / `cam_strips` (the camera CSR where cam_strips is None):
+    `pairs` / `cam_stream` (the camera CSR where cam_stream is None):
     pair block (c_i, c_j) = -(Hll^-1 T)_i' T_j with T = Jl'Jp, diagonal
     Jp_i'Jp_i - (Hll^-1 T)_i' T_i per camera (K1 folds both). Returns
     (H_dense, diag_blocks, b, Hll_invs)."""
     b, Hll_invs = sc_rhs_and_hll(lins, buckets, lam, num_cameras,
-                                 cam_csr=cam_csr, cam_strips=cam_strips)
-    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips)
+                                 cam_csr=cam_csr, cam_stream=cam_stream)
+    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, cam_stream)
     Hd, diag = assemble_rcs_dense(
         HT, T, pairs, lam, num_cameras, buckets, None, None,
         diag_terms=[(Jp, Jp, 1.0), (HT, T, -1.0)], csr=cam_csr,
-        cam_strips=cam_strips)
+        cam_stream=cam_stream)
     return Hd, diag, b, Hll_invs
 
 
-def sc_assemble_bsr(lins, buckets, pairs, cam_strips, lam, num_cameras,
+def sc_assemble_bsr(lins, buckets, pairs, cam_stream, lam, num_cameras,
                     cam_csr=None, symmetric: bool = False):
     """Block-sparse SC assembly (the H of sc_assemble_dense without the
     densify). Returns (blocks, diag, b, Hll_invs) with blocks/diag as in
     linearization.assemble_rcs_bsr (the strict-pair half table with
     symmetric=True)."""
     b, Hll_invs = sc_rhs_and_hll(lins, buckets, lam, num_cameras,
-                                 cam_csr=cam_csr, cam_strips=cam_strips)
-    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips)
+                                 cam_csr=cam_csr, cam_stream=cam_stream)
+    HT, T, Jp = _sc_strip_factors(lins, Hll_invs, cam_stream)
     blocks, diag = assemble_rcs_bsr(
         HT, T, pairs, lam, num_cameras, buckets, None, None,
         symmetric=symmetric, diag_terms=[(Jp, Jp, 1.0), (HT, T, -1.0)],
-        csr=cam_csr, cam_strips=cam_strips)
+        csr=cam_csr, cam_stream=cam_stream)
     return blocks, diag, b, Hll_invs
 
 
@@ -416,34 +408,32 @@ def sc_back_substitute(lins, buckets, Hll_invs, lm_ps, pose_inc,
     return tuple(new_lm_ps), l_hi + l_lo
 
 
-def e0_assemble_dense(lins, buckets, Hll_invs, pairs, cam_strips,
+def e0_assemble_dense(lins, buckets, Hll_invs, pairs, cam_stream,
                       num_cameras, cam_csr=None):
     """E0 = Jp' Jl Hll^-1 Jl' Jp as a z-space dense matrix: the SC pair
     products with the diagonal blocks (Hll^-1 T)' T, through the pair
     and camera reducers (K1). The reference never materializes E0; one
     assembly per stage2 makes every power iteration a dense GEMV."""
-    HT, T, _ = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips,
-                                 with_jp=False)
+    HT, T, _ = _sc_strip_factors(lins, Hll_invs, cam_stream, with_jp=False)
     zero_lam = lins[0].Jp.new_zeros(())
     # the assembly gives diag(terms) - pairs + 0 I = -E0; negate
     negE0, _ = assemble_rcs_dense(
         HT, T, pairs, zero_lam, num_cameras, buckets, None, None,
-        diag_terms=[(HT, T, -1.0)], csr=cam_csr, cam_strips=cam_strips)
+        diag_terms=[(HT, T, -1.0)], csr=cam_csr, cam_stream=cam_stream)
     return negE0.neg_()
 
 
-def e0_assemble_bsr(lins, buckets, Hll_invs, pairs, cam_strips,
+def e0_assemble_bsr(lins, buckets, Hll_invs, pairs, cam_stream,
                     num_cameras, symmetric: bool = False, cam_csr=None):
     """Block-sparse E0 (the matrix of e0_assemble_dense, no densify).
     Returns the NEGATED (blocks, diag) pair: apply as
     e0(v) = -bsr_table_matvec(...)(v)."""
-    HT, T, _ = _sc_strip_factors(lins, Hll_invs, pairs, cam_strips,
-                                 with_jp=False)
+    HT, T, _ = _sc_strip_factors(lins, Hll_invs, cam_stream, with_jp=False)
     zero_lam = lins[0].Jp.new_zeros(())
     return assemble_rcs_bsr(
         HT, T, pairs, zero_lam, num_cameras, buckets, None, None,
         symmetric=symmetric, diag_terms=[(HT, T, -1.0)], csr=cam_csr,
-        cam_strips=cam_strips)
+        cam_stream=cam_stream)
 
 
 def _dense_e0_from_h(H_dense, jacobi, lam):
@@ -492,16 +482,15 @@ class SCLinearizer(LinearizerBase):
                           and 0 < N <= opts.dense_rcs_max_cameras)
         self.bsr_rcs = (self.mesh is None and not self.dense_rcs
                         and opts.dense_rcs_max_cameras > 0)
-        self.pair_index = self.cam_strips = self.bsr = None
+        self.pair_index = self.cam_stream = self.bsr = None
         self.bsr_sym = False
         if not (self.dense_rcs or self.bsr_rcs):
             return
         from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
 
-        self.pair_index, self.cam_strips, pairs_host = build_pair_index(
+        self.pair_index, self.cam_stream, pairs_host = build_pair_index(
             self.bp.buckets, N, opts.pair_gather, self.device,
-            min_group=opts.effective_strip_min_group(
-                self.bp.num_observations), dense_grid=self.dense_rcs)
+            dense_grid=self.dense_rcs)
         if self.bsr_rcs:
             with trace.span("prep.build.bsr_matvec"):
                 self.bsr = BsrMatvecIndex.from_host(build_bsr_matvec(
@@ -547,13 +536,13 @@ class SCLinearizer(LinearizerBase):
         H_dense = None
         if self.dense_rcs:
             H_dense, diag, b, Hll_invs = sc_assemble_dense(
-                lins, self.buckets, self.pair_index, self.cam_strips, lam,
+                lins, self.buckets, self.pair_index, self.cam_stream, lam,
                 N, cam_csr=self.cam_csr)
             stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,
                               Hll_inv=Hll_invs, lam=lam)
         elif self.bsr_rcs:
             half, diag, b, Hll_invs = sc_assemble_bsr(
-                lins, self.buckets, self.pair_index, self.cam_strips, lam,
+                lins, self.buckets, self.pair_index, self.cam_stream, lam,
                 N, cam_csr=self.cam_csr, symmetric=True)
             H_dense = (bsr_build_table(half, self.bsr, self.bsr_sym), diag)
             stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,
@@ -660,19 +649,19 @@ class PowerSCLinearizer(SCLinearizer):
         N = self.num_cameras
         b, Hll_invs = sc_rhs_and_hll(lins, self.buckets, lam, N,
                                      cam_csr=self.cam_csr,
-                                     cam_strips=self.cam_strips,
+                                     cam_stream=self.cam_stream,
                                      mesh=self.mesh)
         hpp_chol = chol9(jp_gram_blockdiag(lins, self.buckets, lam, N,
                                            mesh=self.mesh))
         E0 = None
         if self.dense_rcs:
             E0 = e0_assemble_dense(lins, self.buckets, Hll_invs,
-                                   self.pair_index, self.cam_strips, N,
+                                   self.pair_index, self.cam_stream, N,
                                    cam_csr=self.cam_csr)
         elif self.bsr_rcs:
             neg_half, neg_diag = e0_assemble_bsr(
                 lins, self.buckets, Hll_invs, self.pair_index,
-                self.cam_strips, N, symmetric=True, cam_csr=self.cam_csr)
+                self.cam_stream, N, symmetric=True, cam_csr=self.cam_csr)
             E0 = (bsr_build_table(neg_half, self.bsr, self.bsr_sym),
                   neg_diag)
         stage2 = SCStage2(H=b.new_zeros((0, P9, P9)), b=b,

@@ -4,33 +4,33 @@ of the SC/PoBA solvers.
 Port of the parts of the JAX package's `solver/linearization.py` that
 the ported paths run: the camera state and bucket index, row chunking,
 the packed camera table, the cost evaluation, the camera-CSR
-gather-reduce (`CamCsrIndex`, `csr_cam_reduce`), the indices of the
-three pair gathers with their reducers (pair products, per-camera grams
-and sums) feeding the dense reduced camera system
-(`assemble_rcs_dense`): "stream" (`PairStreamIndex`, `CamStreamIndex`),
-"strips" (`PairStripsIndex`, `CamStripsIndex`, `csr_pair_outer_strips`,
-`cam_gram_strips`, `cam_reduce_strips`, and the W-free sandwich
-`sqrt_ww_pair_strips` / `sqrt_ww_diag_strips`) and "obs"
-(`PairCsrIndex`, `csr_pair_outer`, the camera CSR through
-`_SelfPairView`), one builder choosing among them (`build_pair_index`);
-the fused-W factors the stream reducers take above the W-table budget
-(`StreamFactors`),
+gather-reduce (`CamCsrIndex`, `csr_cam_reduce`), the indices of the two
+pair gathers with their reducers (pair products, per-camera grams and
+sums) feeding the dense reduced camera system (`assemble_rcs_dense`):
+"stream" (`PairStreamIndex`, `CamStreamIndex`, `pair_outer_stream`,
+`cam_gram_stream`, `cam_reduce_stream`) and "obs" (`PairCsrIndex`,
+`csr_pair_outer`, the camera CSR through `_SelfPairView`), one builder
+choosing between them (`build_pair_index`); the fused-W factors the
+stream reducers take above the W-table budget (`StreamFactors`),
 the block-sparse form of that system with its CG operators
 (`BsrMatvecIndex`, `assemble_rcs_bsr`, `bsr_build_table`,
 `bsr_table_matvec`), and the bucket-layout linearization of the SC/PoBA
 solvers (`LinBucket`, `linearize_bucket`, `scale_jl_cols`, `jp_diag2`,
-`jp_t_jp_blockdiag`, `scale_jp_cols`).
+`jp_t_jp_blockdiag`, `scale_jp_cols`). The JAX package's third gather,
+"strips" (slots grouped by within-landmark pattern, with its W-free
+sandwich), is not ported: on the card it was slower per LM iteration
+than both of these at final-3068.
 
 Every per-camera and per-pair sum adds in a fixed order, so it repeats
-bit for bit on the card: the CSR, strips and obs reducers and the BSR
-operator gather and sum; the stream reducers reduce each sub-stream's
-runs of one target through a fixed tree (`RunTreeIndex`,
-bal.bucketing.RunTree) before their one scatter-add with distinct
-targets; `segment_sum`, where the JAX package keeps its segment sum
-(the preconditioner blocks of the implicit SQUARE_ROOT mode and of the
-einsum layout, reduction_alg=0, SC's scatter assembly, the Jp gram of
-the power-series paths, every per-camera sum under a mesh), sums fixed
-blocks of each target's rows in two levels before one sorted add.
+bit for bit on the card: the CSR and obs reducers and the BSR operator
+gather and sum; the stream reducers reduce each sub-stream's runs of
+one target through a fixed tree (`RunTreeIndex`, bal.bucketing.RunTree)
+before their one scatter-add with distinct targets; `segment_sum`,
+where the JAX package keeps its segment sum (the preconditioner blocks
+of the implicit SQUARE_ROOT mode and of the einsum layout,
+reduction_alg=0, SC's scatter assembly, the Jp gram of the power-series
+paths, every per-camera sum under a mesh), sums fixed blocks of each
+target's rows in two levels before one sorted add.
 
 Index tensors are uploaded once as int64. The stream indices address
 slot rows of a bucket's landmark tables; their fill sentinel (the
@@ -41,17 +41,9 @@ pair (camera) count land in an extra row of the output that is dropped.
 Counterparts that collapse here: the JAX package's per-sub-stream
 slicing and padding (`_stream_sub_tables`, `_pad_stack_rows`) become
 one gather from the bucket's slot table (`_gather_slot_rows`) with slot
-ids made global at upload. Its per-group loop of the strips reducers
-(`csr_pair_outer_strips`, `_strip_run_rows`, `sqrt_ww_pair_strips`:
-one landmark-row gather, two static column slices and a fold per
-group) becomes one slot gather per side and bucket, chunked by
-`_PAIR_CHUNK_BYTES`, with each group's slot ids, the canonical swap
-applied, built on the host (`_collapse_groups`): the same run rows in
-the same order, a few launches per bucket where an eager loop would
-launch several per group (327,586 groups at final-3068 with
-min_group=0). `_outer81_fold` / `_outer81_fold_chunked` and the obs
-route's elementwise fold are `ops.fold.outer81_fold` (kernel K1; its
-plain twin `fold_plain` on the CPU).
+ids made global at upload. `_outer81_fold` / `_outer81_fold_chunked`
+and the obs route's elementwise fold are `ops.fold.outer81_fold`
+(kernel K1; its plain twin `fold_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -545,17 +537,14 @@ def cam_reduce_stream(tables, buckets: Sequence[BucketIndex],
 
 
 # ---------------------------------------------------------------------------
-# The "strips" and "obs" pair gathers (host builders:
-# bal.bucketing.build_pair_strips / build_cam_strips / build_pair_csr) and
-# their reducers. Their run rows are concatenated in the JAX package's
-# order (the groups in emission order, then the leftover stream) and
-# summed per pair or camera through idx2 (_level2_reduce): a gather and a
-# sum, so these routes add no scatter and repeat bit for bit on the card.
+# The "obs" pair gather (host builder: bal.bucketing.build_pair_csr) and
+# its reducer. Its run rows are summed per pair or camera through idx2
+# (_level2_reduce): a gather and a sum, so this route adds no scatter and
+# repeats bit for bit on the card.
 
-PAIR_WIDTH = 64
-# per-chunk gather budget of the strips and obs reducers: the bytes of
-# one chunk's gathered slot rows of one table (module global so tests can
-# force several chunks). One chunk's gathers and K1 output live at a time.
+# per-chunk gather budget of the obs reducer: the bytes of one chunk's
+# gathered slot rows of one table (module global so tests can force
+# several chunks). One chunk's gathers and K1 output live at a time.
 _PAIR_CHUNK_BYTES = 64 << 20
 
 
@@ -570,21 +559,6 @@ def _flat_ext(flat: torch.Tensor) -> torch.Tensor:
     appended zero row is what the pad index O gathers."""
     f2 = flat.reshape(flat.shape[0], -1)
     return torch.cat([f2, f2.new_zeros((1, f2.shape[1]))], dim=0)
-
-
-def split_flat_by_bucket(flat, buckets):
-    """[O, ...] flat per-obs array -> per-bucket tuple of [L, n*F] tables
-    (views); per-bucket tables (or StreamFactors) pass through."""
-    if isinstance(flat, (tuple, list)):
-        return flat
-    f2 = flat.reshape(flat.shape[0], -1)
-    outs = []
-    off = 0
-    for b in buckets:
-        L, n = b.cam_idx.shape
-        outs.append(f2[off:off + L * n].reshape(L, -1))
-        off += L * n
-    return tuple(outs)
 
 
 def _fold_gathered(fa: torch.Tensor, fb: torch.Tensor, i1: torch.Tensor,
@@ -614,13 +588,6 @@ def _sum_runs(chunks, num_runs: int, idx2: torch.Tensor,
         raise ValueError(f"{at} run rows for an index of {num_runs}")
     rows[num_runs] = 0
     return _level2_reduce(rows, idx2)
-
-
-def _num_runs(slot_lists, leftover: torch.Tensor) -> int:
-    """Run rows of a strips index: its groups' slots in runs of
-    PAIR_WIDTH, then the leftover stream's [Rl, width] runs."""
-    return (sum(x.shape[0] for x in slot_lists) // PAIR_WIDTH
-            + leftover.shape[0])
 
 
 @dataclass(frozen=True)
@@ -694,133 +661,17 @@ def csr_pair_outer(strip_a: torch.Tensor, strip_b: torch.Tensor,
                      81)  # [P, 81]
 
 
-def _collapse_groups(buckets, group_bucket, lm_idx, cols):
-    """A strips index's groups as one slot list per bucket: the buckets
-    that have groups, in order, and per side the [S_b] slot ids
-    lm*n + col into the bucket's [L*n + 1] slot table (pad rows L ->
-    L*n, the zero row of _slot_table), in the groups' order. cols(g)
-    gives, for the bucket's group ids g, each side's per-slot column.
-    build_pair_strips and build_cam_strips emit the groups bucket by
-    bucket, so the concatenated per-bucket lists keep the JAX package's
-    row order."""
-    gb = np.asarray(group_bucket, np.int64)
-    if gb.size and np.any(np.diff(gb) < 0):
-        raise ValueError("strip groups are not in bucket order")
-    ids, per_side = [], []
-    for bi in np.unique(gb):
-        L, n = buckets[bi].cam_idx.shape
-        g = np.nonzero(gb == bi)[0]
-        # int32 throughout (a bucket's L*n + 1 slots fit): 518M slot ids
-        # per side at final-3068 with min_group=0
-        lm = np.concatenate([lm_idx[k] for k in g]).astype(np.int32)
-        pad = lm == L
-        ids.append(int(bi))
-        per_side.append([np.where(pad, np.int32(L * n), lm * np.int32(n)
-                                  + c) for c in cols(g)])
-    return tuple(ids), per_side
-
-
-@dataclass(frozen=True)
-class PairStripsIndex:
-    """Device copy of bucketing.PairStrips (the "strips" pair gather)
-    with each bucket's groups collapsed: per bucket that has groups, the
-    slot ids of every slot's canonical first and second side (the swap
-    applied on the host), so that a bucket costs one gather per side
-    and one K1 launch per chunk where the JAX package slices per group;
-    the leftover stream's flat obs indices (pad = O); idx2 [P, vmax]
-    over the groups' runs then the leftover's; the pair list and the
-    dense block maps."""
-
-    bucket_ids: Tuple[int, ...]
-    first: Tuple[torch.Tensor, ...]
-    second: Tuple[torch.Tensor, ...]
-    wi_idx: torch.Tensor  # [Rl, width] int32
-    wj_idx: torch.Tensor
-    idx2: torch.Tensor
-    pair_row: torch.Tensor
-    pair_col: torch.Tensor
-    up_idx: torch.Tensor
-    lo_idx: torch.Tensor
-
-    @property
-    def num_pairs(self) -> int:
-        return self.pair_row.shape[0]
-
-    @property
-    def has_leftover(self) -> bool:
-        return self.wi_idx.shape[0] > 0
-
-    @staticmethod
-    def from_host(ps, buckets, device) -> "PairStripsIndex":
-        """Upload a host PairStrips; `buckets` are the host buckets (for
-        their [L, n] shapes)."""
-        def up(a, dt=np.int64):
-            return torch.as_tensor(np.asarray(a, dt), device=device)
-
-        sizes = np.array([x.size for x in ps.lm_idx], np.int64)
-        gi = np.asarray(ps.group_i, np.int32)
-        gj = np.asarray(ps.group_j, np.int32)
-
-        def cols(g):
-            sw = np.concatenate([ps.swap[k] for k in g]).astype(bool)
-            i = np.repeat(gi[g], sizes[g])
-            j = np.repeat(gj[g], sizes[g])
-            return np.where(sw, j, i), np.where(sw, i, j)
-
-        ids, per = _collapse_groups(buckets, ps.group_bucket, ps.lm_idx,
-                                    cols)
-        return PairStripsIndex(
-            bucket_ids=ids, first=tuple(up(s[0], np.int32) for s in per),
-            second=tuple(up(s[1], np.int32) for s in per),
-            wi_idx=up(ps.wi_idx, np.int32), wj_idx=up(ps.wj_idx, np.int32),
-            idx2=up(ps.idx2), pair_row=up(ps.pair_row),
-            pair_col=up(ps.pair_col), up_idx=up(ps.up_idx),
-            lo_idx=up(ps.lo_idx))
-
-
-@dataclass(frozen=True)
-class CamStripsIndex:
-    """Device copy of bucketing.CamStrips with each bucket's groups
-    collapsed (as PairStripsIndex): per bucket that has groups, the slot
-    ids of its slots in the groups' order; the leftover stream's flat
-    obs indices (pad = O); idx2 [N, vmax]."""
-
-    bucket_ids: Tuple[int, ...]
-    slot: Tuple[torch.Tensor, ...]
-    wi_idx: torch.Tensor  # [Rl, width] int32
-    idx2: torch.Tensor
-
-    @property
-    def has_leftover(self) -> bool:
-        return self.wi_idx.shape[0] > 0
-
-    @staticmethod
-    def from_host(cs, buckets, device) -> "CamStripsIndex":
-        def up(a, dt=np.int64):
-            return torch.as_tensor(np.asarray(a, dt), device=device)
-
-        sizes = np.array([x.size for x in cs.lm_idx], np.int64)
-        gi = np.asarray(cs.group_i, np.int32)
-        ids, per = _collapse_groups(
-            buckets, cs.group_bucket, cs.lm_idx,
-            lambda g: (np.repeat(gi[g], sizes[g]),))
-        return CamStripsIndex(
-            bucket_ids=ids, slot=tuple(up(s[0], np.int32) for s in per),
-            wi_idx=up(cs.wi_idx, np.int32), idx2=up(cs.idx2))
-
-
 def build_pair_index(buckets, num_cameras: int, pair_gather: str, device,
-                     min_group: int = 16384, grid_n: Optional[int] = None,
-                     dense_grid: bool = True):
+                     grid_n: Optional[int] = None, dense_grid: bool = True):
     """The explicit system's strict-pair index in the gather formulation
-    `pair_gather` names ("stream", "strips" or "obs"), with the matching
+    `pair_gather` names ("stream" or "obs"), with the matching
     per-camera index (None for "obs": its per-camera sums go through the
     camera CSR), from the host buckets. grid_n pads the dense block maps
     to K3's camera grid; dense_grid=False skips them (BSR mode). Returns
     (pair index, camera index, host pair index -- for "stream" its host
     pair list, pair_stream.PairList -- whose pair list feeds the BSR
-    index). The stream index is built on `device`; the others on
-    the host, then uploaded."""
+    index). The stream index is built on `device`; the obs index on the
+    host, then uploaded."""
     from rootba_tpu_torch.bal import bucketing
     from rootba_tpu_torch.solver import pair_stream
 
@@ -835,35 +686,9 @@ def build_pair_index(buckets, num_cameras: int, pair_gather: str, device,
                 cams = CamStreamIndex.from_host(bucketing.build_cam_stream(
                     buckets, N), buckets, device)
             return pairs, cams, host
-        if pair_gather == "strips":
-            with trace.span("prep.build.pair_strips"):
-                host = bucketing.build_pair_strips(
-                    buckets, N, min_group=min_group, **grid)
-                pairs = PairStripsIndex.from_host(host, buckets, device)
-            with trace.span("prep.build.cam_strips"):
-                cams = CamStripsIndex.from_host(bucketing.build_cam_strips(
-                    buckets, N, min_group=min_group), buckets, device)
-            return pairs, cams, host
         with trace.span("prep.build.pair_csr"):
             host = bucketing.build_pair_csr(buckets, N, **grid)
             return PairCsrIndex.from_host(host, device), None, host
-
-
-def cam_parts_mode(cam_strips) -> bool:
-    """True when the per-camera reducers take per-bucket tables
-    (leftover-free CamStrips, or a CamStream index)."""
-    if cam_strips is None:
-        return False
-    if isinstance(cam_strips, CamStreamIndex):
-        return True
-    return not cam_strips.has_leftover
-
-
-def pair_parts_mode(pairs) -> bool:
-    """True when the pair reducer takes per-bucket tables."""
-    if isinstance(pairs, PairStreamIndex):
-        return True
-    return isinstance(pairs, PairStripsIndex) and not pairs.has_leftover
 
 
 def pair_slots(pairs) -> int:
@@ -872,235 +697,25 @@ def pair_slots(pairs) -> int:
     read)."""
     if isinstance(pairs, PairStreamIndex):
         return sum(wi.numel() for t in pairs.wi_idx for wi in t)
-    if isinstance(pairs, PairStripsIndex):
-        return sum(f.numel() for f in pairs.first) + pairs.wi_idx.numel()
     return pairs.wi_idx.numel()
 
 
-def _no_leftover_parts(parts: bool) -> None:
-    if parts:
-        raise ValueError("per-bucket strip tables require an index built "
-                         "with min_group=0 (no per-obs leftover stream)")
-
-
-def csr_pair_outer_strips(strip_a, strip_b, buckets,
-                          strips) -> torch.Tensor:
-    """Strict-pair block-product reduction over a PairStripsIndex, with
-    csr_pair_outer's semantics (`first` the observation on the pair's
-    lower-id camera):
-
-        out[p, a*9+b] = sum over obs pairs of camera pair p of
-                        sum_k strip_a[first, k, a] strip_b[second, k, b]
-
-    strip_a/strip_b are flat [O, K, 9] arrays or per-bucket tuples of
-    [L_b, n_b*K*9] tables (those need a leftover-free index). Per
-    bucket, both sides' slot rows are gathered from the bucket's slot
-    table and folded by K1 at width 64, chunk by chunk; the leftover
-    stream gathers flat rows the same way. A PairStreamIndex routes to
-    pair_outer_stream."""
-    same = strip_a is strip_b
-    ta = split_flat_by_bucket(strip_a, buckets)
-    tb = ta if same else split_flat_by_bucket(strip_b, buckets)
-    if isinstance(strips, PairStreamIndex):
-        return pair_outer_stream(ta, tb, buckets, strips)
-    if strips.has_leftover:
-        _no_leftover_parts(isinstance(strip_a, (tuple, list)))
-
-    def rows():
-        for bi, s1, s2 in zip(strips.bucket_ids, strips.first,
-                              strips.second):
-            n = buckets[bi].cam_idx.shape[1]
-            fa = _slot_table(ta[bi], n)
-            fb = fa if same else _slot_table(tb[bi], n)
-            yield from _fold_gathered(fa, fb, s1, s2, PAIR_WIDTH)
-        if strips.has_leftover:
-            fa = _flat_ext(strip_a)
-            fb = fa if same else _flat_ext(strip_b)
-            yield from _fold_gathered(fa, fb, strips.wi_idx.reshape(-1),
-                                      strips.wj_idx.reshape(-1),
-                                      strips.wi_idx.shape[1])
-
-    return _sum_runs(rows(), _num_runs(strips.first, strips.wi_idx),
-                     strips.idx2, _first_table(ta), 81)  # [P, 81]
-
-
-def _strip_run_rows(buckets, strips: CamStripsIndex, flat_tables, row_fn,
-                    out_width, row_fn_runs=None) -> torch.Tensor:
-    """Shared two-level skeleton of the camera-strip reducers: per
-    bucket, gather each table's slot rows at the bucket's slot ids
-    (chunked), hand them to row_fn -> [rows, out_width] and sum runs of
-    64 (or row_fn_runs(slices, width) -> [rows/width, out_width], which
-    folds the runs itself, by K1); the leftover stream gathers flat rows
-    the same way. Returns the [N, out_width] per-camera totals via
-    idx2. Each flat_tables entry is a flat [O, ...] array or a
-    per-bucket tuple of [L_b, n_b*K] tables (those need a leftover-free
-    index)."""
-    tabs = [split_flat_by_bucket(f, buckets) for f in flat_tables]
-
-    def runs(slices, width):
-        if row_fn_runs is not None:
-            return row_fn_runs(slices, width)
-        return row_fn(slices).reshape(-1, width, out_width).sum(dim=1)
-
-    def gather_runs(tables, idx, width):
-        step = _chunk_slots(sum(t.shape[1] * t.element_size()
-                                for t in tables), width)
-        for a in range(0, idx.shape[0], step):
-            yield runs([t.index_select(0, idx[a:a + step])
-                        for t in tables], width)
-
-    if strips.has_leftover:
-        _no_leftover_parts(any(isinstance(f, (tuple, list))
-                               for f in flat_tables))
-
-    def rows():
-        for bi, slot in zip(strips.bucket_ids, strips.slot):
-            n = buckets[bi].cam_idx.shape[1]
-            yield from gather_runs([_slot_table(t[bi], n) for t in tabs],
-                                   slot, PAIR_WIDTH)
-        if strips.has_leftover:
-            yield from gather_runs([_flat_ext(f) for f in flat_tables],
-                                   strips.wi_idx.reshape(-1),
-                                   strips.wi_idx.shape[1])
-
-    return _sum_runs(rows(), _num_runs(strips.slot, strips.wi_idx),
-                     strips.idx2, _first_table(tabs[0]), out_width)
-
-
-def cam_reduce_strips(flat, buckets, strips) -> torch.Tensor:
-    """Per-camera sum of per-obs-slot contribution rows over a
-    CamStripsIndex (csr_cam_reduce's semantics): `flat` is an [O, F]
-    array or a per-bucket tuple of [L_b, n_b*F] tables. A CamStreamIndex
-    routes to cam_reduce_stream."""
-    if isinstance(strips, CamStreamIndex):
-        return cam_reduce_stream(split_flat_by_bucket(flat, buckets),
-                                 buckets, strips)
-    if isinstance(flat, (tuple, list)):
-        F = flat[0].shape[1] // buckets[0].cam_idx.shape[1]
-    else:
-        F = flat.shape[1]
-    return _strip_run_rows(buckets, strips, [flat], lambda s: s[0], F)
-
-
-def cam_gram_strips(terms, buckets, strips) -> torch.Tensor:
-    """Per-camera gram blocks sum_obs sum_k A[o,k,a] B[o,k,b] as [N, 81]
-    rows, each run folded by K1: terms = [(A, B, sign)], each side a
-    flat [O, K, 9] array or a per-bucket tuple of [L_b, n_b*K*9] tables;
-    a table shared between terms or sides is gathered once. A
-    CamStreamIndex routes to cam_gram_stream."""
-    if isinstance(strips, CamStreamIndex):
-        seen = {}
-
-        def as_parts(M):
-            if id(M) not in seen:
-                seen[id(M)] = split_flat_by_bucket(M, buckets)
-            return seen[id(M)]
-
-        return cam_gram_stream([(as_parts(A), as_parts(B), sign)
-                                for A, B, sign in terms], buckets, strips)
-    tabs = []
-    ids = {}
-    term_ix = []
-    for A, B, sign in terms:
-        for M in (A, B):
-            if id(M) not in ids:
-                ids[id(M)] = len(tabs)
-                tabs.append(M if isinstance(M, (tuple, list))
-                            else M.reshape(M.shape[0], -1))
-        term_ix.append((ids[id(A)], ids[id(B)], sign))
-
-    def row_fn_runs(slices, width):
-        out = None
-        for ia, ib, sign in term_ix:
-            prod = fold.outer81_fold(slices[ia], slices[ib], width)
-            prod = prod if sign == 1.0 else sign * prod
-            out = prod if out is None else out + prod
-        return out
-
-    return _strip_run_rows(buckets, strips, tabs, None, 81,
-                           row_fn_runs=row_fn_runs)
-
-
-def _ww_sandwich_U(q1, q2, p1):
-    """Per-slot U = (q1 q2')' p1 for the W'W sandwich (see
-    sqrt_ww_pair_strips): q1/q2 [rows, 6] Q1h slot rows (2 residual rows
-    x 3 landmark cols, r-major), p1 [rows, 18] Jp slot rows (2 rows x 9,
-    r-major). Returns [rows, 18] with u_s = sum_r M[r, s] p1_r,
-    M = q1 q2' (2x2)."""
-    m00 = torch.sum(q1[:, :3] * q2[:, :3], dim=1)[:, None]
-    m01 = torch.sum(q1[:, :3] * q2[:, 3:], dim=1)[:, None]
-    m10 = torch.sum(q1[:, 3:] * q2[:, :3], dim=1)[:, None]
-    m11 = torch.sum(q1[:, 3:] * q2[:, 3:], dim=1)[:, None]
-    u0 = m00 * p1[:, :9] + m10 * p1[:, 9:]
-    u1 = m01 * p1[:, :9] + m11 * p1[:, 9:]
-    return torch.cat([u0, u1], dim=1)
-
-
-def sqrt_ww_pair_strips(q_tabs, jp_tabs, buckets,
-                        strips: PairStripsIndex) -> torch.Tensor:
-    """Pair blocks sum W_i' W_j of the sqrt RCS without the W tables:
-    per pair slot W_i' W_j = Jp_i' (Q1h_i Q1h_j') Jp_j, a 2x2 sandwich
-    M = Q1h_i Q1h_j', then K1 folds U = M' Jp_i against Jp_j. Trades a
-    second gather per slot (the Q1h and Jp rows instead of one W row)
-    for never holding the [sum L, n*27] W tables. q_tabs / jp_tabs:
-    per-bucket [L, n*6] / [L, n*18] tables (the index must be
-    leftover-free). Returns [P, 81] in csr_pair_outer_strips' order."""
-    if strips.has_leftover:
-        raise ValueError("sqrt_ww_pair_strips requires a leftover-free "
-                         "strips index (min_group=0)")
-
-    def rows():
-        for bi, s1, s2 in zip(strips.bucket_ids, strips.first,
-                              strips.second):
-            n = buckets[bi].cam_idx.shape[1]
-            tq = _slot_table(q_tabs[bi], n)
-            tj = _slot_table(jp_tabs[bi], n)
-            step = _chunk_slots((tq.shape[1] + tj.shape[1])
-                                * tq.element_size(), PAIR_WIDTH)
-            for a in range(0, s1.shape[0], step):
-                i1, i2 = s1[a:a + step], s2[a:a + step]
-                U = _ww_sandwich_U(tq.index_select(0, i1),
-                                   tq.index_select(0, i2),
-                                   tj.index_select(0, i1))
-                yield fold.outer81_fold(U, tj.index_select(0, i2),
-                                        PAIR_WIDTH)
-
-    return _sum_runs(rows(), _num_runs(strips.first, strips.wi_idx),
-                     strips.idx2, q_tabs[0], 81)
-
-
-def sqrt_ww_diag_strips(q_tabs, jp_tabs, buckets,
-                        strips: CamStripsIndex) -> torch.Tensor:
-    """Per-camera diagonal blocks Jp'Jp - W'W of the sqrt RCS without the
-    W tables (sqrt_ww_pair_strips' sandwich with i = j): [N, 81]."""
-
-    def row_fn_runs(slices, width):
-        q, p = slices
-        U = _ww_sandwich_U(q, q, p)
-        return (fold.outer81_fold(p, p, width)
-                - fold.outer81_fold(U, p, width))
-
-    return _strip_run_rows(buckets, strips, [q_tabs, jp_tabs], None, 81,
-                           row_fn_runs=row_fn_runs)
-
-
-def _pair_rows(strip_a, strip_b, pairs, buckets, pair_rows):
-    """The [P, 81] strict-pair rows of an assembly: given (the W-free
-    sandwich's), else by the pair index's reducer."""
-    if pair_rows is not None:
-        return pair_rows
-    if isinstance(pairs, (PairStripsIndex, PairStreamIndex)):
-        return csr_pair_outer_strips(strip_a, strip_b, buckets, pairs)
+def _pair_rows(strip_a, strip_b, pairs, buckets):
+    """The [P, 81] strict-pair rows of an assembly, by the reducer of
+    the pair index: per-bucket tables (or StreamFactors) over a
+    PairStreamIndex, flat [O, K, 9] arrays over a PairCsrIndex."""
+    if isinstance(pairs, PairStreamIndex):
+        return pair_outer_stream(strip_a, strip_b, buckets, pairs)
     return csr_pair_outer(strip_a, strip_b, pairs)
 
 
-def _diag_rows(terms, buckets, num_cameras: int, csr, cam_strips):
+def _diag_rows(terms, buckets, num_cameras: int, csr, cam_stream):
     """The [N, 81] per-camera rows sum_terms sign * A' B of an assembly:
-    through the camera strips or stream, else the camera CSR
+    through the camera stream (per-bucket tables), else the camera CSR
     (_SelfPairView), else per-observation products (K1 at width 1) and
-    a segment sum."""
-    if cam_strips is not None:
-        return cam_gram_strips(terms, buckets, cam_strips)
+    a segment sum (flat [O, K, 9] arrays)."""
+    if cam_stream is not None:
+        return cam_gram_stream(terms, buckets, cam_stream)
     if csr is not None:
         view = _SelfPairView.of(csr)
         out = None
@@ -1119,8 +734,8 @@ def _diag_rows(terms, buckets, num_cameras: int, csr, cam_strips):
 
 def assemble_rcs_dense(strip_a, strip_b, pairs, lam, num_cameras: int,
                        buckets, pose_scale, diag81, diag_terms=None,
-                       csr=None, cam_strips=None,
-                       pair_rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       csr=None,
+                       cam_stream=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense reduced camera system from per-slot factors:
 
         H = sum_terms sign * A_i' B_i on the block diagonal
@@ -1128,20 +743,20 @@ def assemble_rcs_dense(strip_a, strip_b, pairs, lam, num_cameras: int,
 
     with the deferred jacobi pose scale applied at the [P, 81] / [N, 81]
     level (pose_scale None: factors already scaled, the SC solvers').
-    The pair rows come from pair_rows when given (the W-free sandwich),
-    else from the reducer of `pairs` (a stream, strips or obs index);
-    the [N, 81] diagonal rows from diag81 when given (SQUARE_ROOT's
-    cached Jp gram less W'W), else from diag_terms [(A, B, sign)]
-    through cam_strips, else the camera CSR, else a segment sum.
+    The pair rows come from the reducer of `pairs` (a stream or obs
+    index); the [N, 81] diagonal rows from diag81 when given
+    (SQUARE_ROOT's cached Jp gram less W'W), else from diag_terms
+    [(A, B, sign)] through cam_stream, else the camera CSR, else a
+    segment sum.
     Returns (Hz, diag): Hz the feature-major ("z-space") dense matrix
     Hz[a*G+i, b*G+j] = block(i,j)[a,b] on the (possibly padded) [G, G]
     camera grid of the pair index, diag the [N,9,9] diagonal blocks (the
     SCHUR_JACOBI preconditioner, free)."""
     P9 = POSE_SIZE
     N = num_cameras
-    Hup = _pair_rows(strip_a, strip_b, pairs, buckets, pair_rows)
+    Hup = _pair_rows(strip_a, strip_b, pairs, buckets)
     if diag81 is None:
-        diag81 = _diag_rows(diag_terms, buckets, N, csr, cam_strips)
+        diag81 = _diag_rows(diag_terms, buckets, N, csr, cam_stream)
     if pose_scale is not None:
         Hup = Hup * _pair_scale(pose_scale, pairs.pair_row, pairs.pair_col)
         diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
@@ -1266,8 +881,7 @@ def _scale_neg_chunked(Hup, pose_scale, pair_row, pair_col):
 
 def assemble_rcs_bsr(strip_a, strip_b, pairs, lam, num_cameras: int,
                      buckets, pose_scale, diag81, symmetric: bool = False,
-                     diag_terms=None, csr=None, cam_strips=None,
-                     pair_rows=None):
+                     diag_terms=None, csr=None, cam_stream=None):
     """Block-sparse RCS assembly: the pair and camera reductions of
     assemble_rcs_dense without the densify. Returns (blocks, diag):
 
@@ -1283,9 +897,9 @@ def assemble_rcs_bsr(strip_a, strip_b, pairs, lam, num_cameras: int,
     assemble_rcs_dense."""
     P9 = POSE_SIZE
     N = num_cameras
-    Hup = _pair_rows(strip_a, strip_b, pairs, buckets, pair_rows)
+    Hup = _pair_rows(strip_a, strip_b, pairs, buckets)
     if diag81 is None:
-        diag81 = _diag_rows(diag_terms, buckets, N, csr, cam_strips)
+        diag81 = _diag_rows(diag_terms, buckets, N, csr, cam_stream)
     if pose_scale is not None:
         diag81 = diag81 * (pose_scale.repeat_interleave(P9, dim=1)
                            * pose_scale.repeat(1, P9))

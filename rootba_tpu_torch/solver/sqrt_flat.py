@@ -17,9 +17,7 @@ kernel K3 when it is small enough or by pcg on dense GEMVs), 'bsr' (the
 same system's camera-pair blocks only, assembled through K1 and K2, pcg
 on the block-sparse operator) and 'implicit' (matrix-free, the
 reference's own). The explicit system's pair and camera sums go
-through the pair gather that `pair_gather` names: 'stream', 'strips'
-(with the W-free sandwich of `_sandwich_rows` on leftover-free strips
-from _SANDWICH_MIN_SLOTS obs slots) or 'obs'.
+through the pair gather that `pair_gather` names: 'stream' or 'obs'.
 """
 
 from __future__ import annotations
@@ -41,9 +39,7 @@ from rootba_tpu_torch.solver.linearization import (
     BsrMatvecIndex,
     CamCsrIndex,
     CamState,
-    CamStreamIndex,
     PairStreamIndex,
-    PairStripsIndex,
     StreamFactors,
     _broadcast_lm,
     _map_rows,
@@ -53,17 +49,13 @@ from rootba_tpu_torch.solver.linearization import (
     bsr_symmetric_fits,
     bsr_table_matvec,
     build_pair_index,
-    cam_gram_strips,
-    cam_parts_mode,
-    cam_reduce_strips,
+    cam_gram_stream,
+    cam_reduce_stream,
     csr_cam_reduce,
     gather_cam_planes,
     packed_cam_table,
-    pair_parts_mode,
     pair_slots,
     segment_sum,
-    sqrt_ww_diag_strips,
-    sqrt_ww_pair_strips,
 )
 
 P9 = POSE_SIZE
@@ -73,14 +65,6 @@ P9 = POSE_SIZE
 # build W rows after the gather instead. Module global so tests can
 # force the fused path at toy size.
 _FUSED_W_MIN_BYTES = 1_500_000_000
-
-# from this many obs slots on, the explicit assembly on leftover-free
-# strips takes the W-free sandwich (linearization.sqrt_ww_pair_strips):
-# no [sum L, n*27] W tables, a second slot gather per pair instead. The
-# JAX package's crossover (no BAL problem reaches it: final-13682 has
-# 33.6M slots); module global so tests can force the sandwich at toy
-# size.
-_SANDWICH_MIN_SLOTS = 48_000_000
 
 
 class FlatLin(NamedTuple):
@@ -119,16 +103,16 @@ def _cam_flat(buckets):
 
 def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
                    huber_parameter, use_valid_only, jacobi_eps,
-                   jacobi_scaling, num_cameras, cam_strips=None,
-                   with_gram: bool = False,
+                   jacobi_scaling, num_cameras, cam_stream=None,
                    csr: Optional[CamCsrIndex] = None):
     """Stage 1: linearize + Jl column scaling + undamped Jl QR + jacobi
     pose scaling, all buckets in one pass (reference get_stage1,
-    linearization_qr.hpp:634-712). The per-camera diag2 reduce goes
-    through the camera stream or leftover-free camera strips (explicit
-    modes; with_gram: as the block diagonal of the whole Jp gram), else
-    the camera CSR (reduction_alg != 0), else a segment sum. Returns
-    (FlatLin, pose_scale, failures)."""
+    linearization_qr.hpp:634-712). With the camera stream (the explicit
+    modes' stream route) one K1 pass reduces the whole Jp gram, which the
+    attempts' assembly reuses, and diag2 is its block diagonal; else the
+    per-camera diag2 reduce goes through the camera CSR
+    (reduction_alg != 0), else a segment sum. Returns (FlatLin,
+    pose_scale, failures)."""
     from rootba_tpu_torch.ops.planar import robust_sqrt_weight, snavely_planes
 
     table = packed_cam_table(cams)
@@ -187,17 +171,14 @@ def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
 
     # pose jacobi scaling (add_Jp_diag2 -> linearizor_qr.cpp:104-110)
     diag_jp81 = None
-    parts = cam_parts_mode(cam_strips)
-    if with_gram and parts:
+    if cam_stream is not None:
         # one K1 pass yields the full lambda-independent Jp gram; diag2
         # is its block diagonal
         jp_t = tuple(jp_us)
-        diag_jp81 = cam_gram_strips([(jp_t, jp_t, 1.0)], buckets,
-                                    cam_strips)
+        diag_jp81 = cam_gram_stream([(jp_t, jp_t, 1.0)], buckets,
+                                    cam_stream)
         diag2 = torch.diagonal(diag_jp81.reshape(num_cameras, P9, P9),
                                dim1=1, dim2=2)
-    elif parts:
-        diag2 = cam_reduce_strips(tuple(d2_parts), buckets, cam_strips)
     elif csr is not None:
         diag2 = csr_cam_reduce([d.reshape(-1, P9) for d in d2_parts], csr,
                                num_cameras)
@@ -218,7 +199,7 @@ def flat_linearize(cams: CamState, lm_ps, buckets, robust_norm,
 def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
                 *, precond_jacobi: bool = False,
                 precond_diagonal: bool = False, with_precond: bool = True,
-                cam_strips=None,
+                cam_stream=None,
                 csr: Optional[CamCsrIndex] = None) -> FlatStage2:
     """Stage 2 (reference get_stage2, linearization_qr.hpp:716-815):
     landmark damping via the 6x3 re-QR, RHS, preconditioner.
@@ -277,11 +258,8 @@ def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
             return yb.reshape(Lc, n * P9)
 
         ybp.append(_map_rows(rhs_chunk, [q_b, r_b, jp_b], L, n))
-    if cam_parts_mode(cam_strips):
-        b = cam_reduce_strips(tuple(ybp), buckets, cam_strips)
-    elif cam_strips is not None:
-        b = cam_reduce_strips(torch.cat([y.reshape(-1, P9) for y in ybp]),
-                              buckets, cam_strips)
+    if cam_stream is not None:
+        b = cam_reduce_stream(tuple(ybp), buckets, cam_stream)
     elif csr is not None:
         b = csr_cam_reduce([y.reshape(-1, P9) for y in ybp], csr,
                            num_cameras)
@@ -326,86 +304,45 @@ def flat_stage2(lin: FlatLin, buckets, lam: torch.Tensor, num_cameras,
                       lam=lam)
 
 
-def _rcs_factors(lin: FlatLin, stage2: FlatStage2, buckets, pairs,
-                 cam_strips):
-    """W = Q1h'Jp strip factors, built per bucket by kernel K2: the
-    per-bucket [L, n*27] tables where both reducers take them
-    (stream, or leftover-free strips), else their flat [O, 3, 9] form
-    (the obs route and strips with a leftover stream). On the stream
-    route above _FUSED_W_MIN_BYTES of tables, the (Q1h, Jp)
-    StreamFactors instead, whose W rows the stream reducers build after
-    each slot gather, by K2 on the gathered rows (24 values gathered per
-    slot instead of 27, and no resident W table)."""
+def _rcs_factors(lin: FlatLin, stage2: FlatStage2, buckets, pairs):
+    """W = Q1h'Jp strip factors, built per bucket by kernel K2: on the
+    stream route the per-bucket [L, n*27] tables, or above
+    _FUSED_W_MIN_BYTES of tables the (Q1h, Jp) StreamFactors instead,
+    whose W rows the stream reducers build after each slot gather, by K2
+    on the gathered rows (24 values gathered per slot instead of 27, and
+    no resident W table); on the obs route their flat [O, 3, 9] form."""
+    stream = isinstance(pairs, PairStreamIndex)
     slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1] for b in buckets)
-    if (isinstance(pairs, PairStreamIndex)
-            and isinstance(cam_strips, CamStreamIndex)
-            and slots * 27 * lin.Jp[0].element_size() > _FUSED_W_MIN_BYTES):
+    if stream and slots * 27 * lin.Jp[0].element_size() > _FUSED_W_MIN_BYTES:
         return StreamFactors(q=tuple(stage2.Q1h), jp=tuple(lin.Jp))
     Wp = tuple(fold.w_build(q_b, jp_b, bucket.cam_idx.shape[1])
                for bucket, q_b, jp_b in zip(buckets, stage2.Q1h, lin.Jp))
-    if cam_parts_mode(cam_strips) and pair_parts_mode(pairs):
+    if stream:
         return Wp
     return torch.cat([w.reshape(-1, 3, P9) for w in Wp], dim=0)
 
 
-def _diag_terms(lin: FlatLin, W):
-    """The diagonal blocks' terms Jp'Jp - W'W, in W's form (per-bucket
-    tables or StreamFactors, or flat [O, K, 9])."""
-    if isinstance(W, torch.Tensor):
-        Jpf = torch.cat([j.reshape(-1, 2, P9) for j in lin.Jp], dim=0)
-        return [(Jpf, Jpf, 1.0), (W, W, -1.0)]
-    return [(lin.Jp, lin.Jp, 1.0), (W, W, -1.0)]
-
-
-def _cached_diag81(lin: FlatLin, W, buckets, cam_strips):
-    """Diagonal-block rows from the stage1 Jp gram: per attempt only the
-    lambda-dependent -W'W part is reduced (one K1 pass; W tables or
-    StreamFactors). None without the gram or with flat W: the
-    assembler reduces _diag_terms itself."""
-    if lin.diag_jp81 is None or isinstance(W, torch.Tensor):
-        return None
-    return lin.diag_jp81 + cam_gram_strips([(W, W, -1.0)], buckets,
-                                           cam_strips)
-
-
-def _sandwich_rows(lin: FlatLin, stage2: FlatStage2, buckets, pairs,
-                   cam_strips):
-    """W-free pair and diagonal rows of the sqrt RCS assembly
-    (linearization.sqrt_ww_pair_strips / sqrt_ww_diag_strips): on
-    leftover-free strips indices from _SANDWICH_MIN_SLOTS obs slots on.
-    Returns (Hup [P, 81], diag81 [N, 81]) or (None, None)."""
-    parts = (cam_parts_mode(cam_strips)
-             and isinstance(pairs, PairStripsIndex)
-             and not pairs.has_leftover)
-    slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1] for b in buckets)
-    if not parts or slots < _SANDWICH_MIN_SLOTS:
-        return None, None
-    return (sqrt_ww_pair_strips(stage2.Q1h, lin.Jp, buckets, pairs),
-            sqrt_ww_diag_strips(stage2.Q1h, lin.Jp, buckets, cam_strips))
-
-
 def _assemble(assembler, lin: FlatLin, stage2: FlatStage2, pairs,
-              num_cameras, buckets, cam_strips, csr, **kw):
+              num_cameras, buckets, cam_stream, csr, **kw):
     """The explicit system by `assembler` (assemble_rcs_dense or _bsr):
-    the sandwich's rows, or the W factors' pair products and the
-    diagonal blocks (cached gram less W'W, else Jp'Jp - W'W reduced by
-    the assembler)."""
-    Hup, diag81 = _sandwich_rows(lin, stage2, buckets, pairs, cam_strips)
-    if Hup is not None:
-        return assembler(lin.Jp, lin.Jp, pairs, stage2.lam, num_cameras,
-                         buckets, lin.pose_scale, diag81, pair_rows=Hup,
-                         **kw)
-    W = _rcs_factors(lin, stage2, buckets, pairs, cam_strips)
-    diag81 = _cached_diag81(lin, W, buckets, cam_strips)
+    the W factors' pair products and the diagonal blocks -- on the
+    stream route stage1's cached Jp gram less this attempt's W'W (one K1
+    pass), on the obs route Jp'Jp - W'W reduced by the assembler."""
+    W = _rcs_factors(lin, stage2, buckets, pairs)
+    diag81 = diag_terms = None
+    if cam_stream is not None:
+        diag81 = lin.diag_jp81 + cam_gram_stream([(W, W, -1.0)], buckets,
+                                                 cam_stream)
+    else:
+        Jpf = torch.cat([j.reshape(-1, 2, P9) for j in lin.Jp], dim=0)
+        diag_terms = [(Jpf, Jpf, 1.0), (W, W, -1.0)]
     return assembler(W, W, pairs, stage2.lam, num_cameras, buckets,
-                     lin.pose_scale, diag81,
-                     diag_terms=(_diag_terms(lin, W) if diag81 is None
-                                 else None),
-                     csr=csr, cam_strips=cam_strips, **kw)
+                     lin.pose_scale, diag81, diag_terms=diag_terms,
+                     csr=csr, cam_stream=cam_stream, **kw)
 
 
 def flat_assemble_rcs(lin: FlatLin, stage2: FlatStage2, pairs, num_cameras,
-                      buckets, cam_strips, csr=None):
+                      buckets, cam_stream, csr=None):
     """The explicit reduced camera system of the sqrt solver,
 
         H = Jp'Jp - (Q1'Jp)'(Q1'Jp) + lam I = (Q2'Jp)'(Q2'Jp) + lam I,
@@ -415,18 +352,18 @@ def flat_assemble_rcs(lin: FlatLin, stage2: FlatStage2, pairs, num_cameras,
     delta_ij Jp_i'Jp_i - W_i'W_j with W_o = Q1h_o'Jp_o. csr: the camera
     CSR of the obs route's diagonal blocks."""
     return _assemble(assemble_rcs_dense, lin, stage2, pairs, num_cameras,
-                     buckets, cam_strips, csr)
+                     buckets, cam_stream, csr)
 
 
 def flat_assemble_rcs_bsr(lin: FlatLin, stage2: FlatStage2, pairs,
-                          num_cameras, buckets, cam_strips,
+                          num_cameras, buckets, cam_stream,
                           symmetric=False, csr=None):
     """Block-sparse form of flat_assemble_rcs (the same H, no densify):
     (blocks [2P, 81], diag [N, 9, 9]), or with symmetric=True the
     [P, 81] strict-pair half table (see linearization.assemble_rcs_bsr).
     """
     return _assemble(assemble_rcs_bsr, lin, stage2, pairs, num_cameras,
-                     buckets, cam_strips, csr, symmetric=symmetric)
+                     buckets, cam_stream, csr, symmetric=symmetric)
 
 
 def flat_matvec(lin: FlatLin, stage2: FlatStage2, buckets, num_cameras,
@@ -563,27 +500,24 @@ class FlatSqrtLinearizer(LinearizerBase):
                               and (small or opts.pallas_cg == "on"))
         self.pairs = None
         self.pair_slots = 0
-        self.cam_strips = None
+        self.cam_stream = None
         self.bsr = None
         self.bsr_sym = False
-        explicit = self.explicit_rcs or self.bsr_rcs
-        min_group = opts.effective_strip_min_group(self.bp.num_observations)
-        if explicit:
+        if self.explicit_rcs or self.bsr_rcs:
             from rootba_tpu_torch.bal.bucketing import build_bsr_matvec
 
             # BSR mode builds no [G*G] dense block maps (at 3,068 cameras
             # each would hold 9.4M entries)
-            self.pairs, self.cam_strips, pairs_host = build_pair_index(
+            self.pairs, self.cam_stream, pairs_host = build_pair_index(
                 self.bp.buckets, N, opts.pair_gather, self.device,
-                min_group=min_group,
                 grid_n=Nc if self.use_cg_kernel else None,
                 dense_grid=self.explicit_rcs)
             self.pair_slots = pair_slots(self.pairs)
             if self.bsr_rcs:
-                # the stream or leftover-free strips reducers take every
-                # per-camera sum of BSR mode, so the camera CSR is never
-                # built (as in the JAX package)
-                if cam_parts_mode(self.cam_strips):
+                # the stream reducers take every per-camera sum of BSR
+                # mode, so the camera CSR is never built (as in the JAX
+                # package)
+                if self.cam_stream is not None:
                     self.cam_csr = None
                 with trace.span("prep.build.bsr_matvec"):
                     self.bsr = BsrMatvecIndex.from_host(
@@ -595,23 +529,12 @@ class FlatSqrtLinearizer(LinearizerBase):
                 self.bsr_sym = bsr_symmetric_fits(
                     self.bsr, self.dtype.itemsize,
                     int(opts.bsr_pack_max_gb * (1 << 30)))
-        # stage1 caches the Jp gram (flat_linearize: where the camera
-        # index takes per-bucket tables) for the attempts' assembly, but
-        # not under the W-free sandwich, whose diagonal comes from
-        # sqrt_ww_diag_strips
-        slots = sum(b.cam_idx.shape[0] * b.cam_idx.shape[1]
-                    for b in self.buckets)
-        self.sandwich = (explicit and opts.pair_gather == "strips"
-                         and min_group == 0
-                         and slots >= _SANDWICH_MIN_SLOTS)
-        self.with_gram = explicit and not self.sandwich
 
     @property
     def stage_csr(self) -> Optional[CamCsrIndex]:
         """The camera CSR of the per-camera sums that the camera stream
-        or leftover-free camera strips do not take (built on first
-        use)."""
-        return None if cam_parts_mode(self.cam_strips) else self.cam_csr
+        does not take (built on first use)."""
+        return None if self.cam_stream is not None else self.cam_csr
 
     def error(self, cams, lm_ps):
         from rootba_tpu_torch.solver.linearization import (
@@ -626,8 +549,7 @@ class FlatSqrtLinearizer(LinearizerBase):
             cams, lm_ps, self.buckets, self.robust_norm, self.huber,
             self.options.use_projection_validity_check(), self.jacobi_eps,
             self.options.jacobi_scaling, self.num_cameras,
-            cam_strips=self.cam_strips, with_gram=self.with_gram,
-            csr=self.stage_csr)
+            cam_stream=self.cam_stream, csr=self.stage_csr)
 
     def stage2(self, lins: FlatLin, lam: torch.Tensor):
         N = self.num_cameras
@@ -644,7 +566,7 @@ class FlatSqrtLinearizer(LinearizerBase):
         stage2 = flat_stage2(lins, self.buckets, lam, N,
                              precond_jacobi=self.precond_jacobi,
                              with_precond=self.precond_jacobi,
-                             cam_strips=self.cam_strips, csr=csr)
+                             cam_stream=self.cam_stream, csr=csr)
         # the assembly's device time (read after the attempt's sync)
         # and the pair slots it folds, for the benchmark's stage2 metrics
         with trace.timer("rcs.assemble", self.device):
@@ -658,11 +580,11 @@ class FlatSqrtLinearizer(LinearizerBase):
                 # sqrt_flat.py:904 there).
                 half, diag = flat_assemble_rcs_bsr(
                     lins, stage2, self.pairs, N, self.buckets,
-                    self.cam_strips, symmetric=True, csr=csr)
+                    self.cam_stream, symmetric=True, csr=csr)
                 H = bsr_build_table(half, self.bsr, self.bsr_sym)
             else:
                 H, diag = flat_assemble_rcs(lins, stage2, self.pairs, N,
-                                            self.buckets, self.cam_strips,
+                                            self.buckets, self.cam_stream,
                                             csr=csr)
         trace.count("rcs.pair_slots", self.pair_slots)
         if not self.precond_jacobi:

@@ -301,7 +301,7 @@ def test_assemble_rcs_bsr_both_forms(bsr_stages):
         buckets=buckets, cam_strips=cstrips, symmetric=symmetric)
     ttab, tdiag = tsf.flat_assemble_rcs_bsr(
         tl, ts2, tlin.pairs, tlin.num_cameras, tlin.buckets,
-        tlin.cam_strips, symmetric=symmetric)
+        tlin.cam_stream, symmetric=symmetric)
     P = tlin.pairs.num_pairs
     assert ttab.shape == ((P if symmetric else 2 * P), 81)
     _close(ttab, jtab, tol, "blocks")
@@ -456,9 +456,8 @@ def test_auto_picks_bsr_above_dense_rcs_max_cameras(synthetic_problem):
     lin = t_create(bp, TOptions(dense_rcs_max_cameras=1), torch.float32,
                    CPU)
     assert lin.bsr_rcs and not lin.bsr_sym and not lin.use_cg_kernel
-    # the strips and obs pair gathers run BSR mode too
-    # (tests/test_torch_strips.py holds them to the JAX package)
-    for kw in (dict(pair_gather="strips"), dict(pair_gather="obs")):
-        lin = t_create(bp, TOptions(sqrt_rcs_mode="bsr", **kw),
-                       torch.float64, CPU)
-        assert lin.bsr_rcs and lin.bsr is not None
+    # the obs pair gather runs BSR mode too
+    # (tests/test_torch_pair_gathers.py holds it to the JAX package)
+    lin = t_create(bp, TOptions(sqrt_rcs_mode="bsr", pair_gather="obs"),
+                   torch.float64, CPU)
+    assert lin.bsr_rcs and lin.bsr is not None

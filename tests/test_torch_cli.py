@@ -32,7 +32,7 @@ def _write_problem(path):
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
     """Importing the port (its eval tools too) and solving on the CPU with
-    each of its solvers (and the strips and obs pair gathers) leaves jax
+    each of its solvers (and the obs pair gather) leaves jax
     and the JAX package out of sys.modules."""
     prog = f"""
 import sys
@@ -74,14 +74,12 @@ s = bundle_adjust(p, SolverOptions(
     kernel_layout="einsum", num_devices=0), device="cpu")
 assert s.final_cost.all.error < s.initial_cost.all.error, "einsum"
 for solver in ("SQUARE_ROOT", "SCHUR_COMPLEMENT"):
-    for gather in ("strips", "obs"):
-        p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
-        p.filter_obs(0.1)
-        s = bundle_adjust(p, SolverOptions(
-            use_double=False, verbosity_level=0, max_num_iterations=3,
-            solver_type=SolverType(solver), pair_gather=gather,
-            strip_min_group=0), device="cpu")
-        assert s.final_cost.all.error < s.initial_cost.all.error, gather
+    p = generate_synthetic_bal(num_cams=6, num_lms=60, seed=2)
+    p.filter_obs(0.1)
+    s = bundle_adjust(p, SolverOptions(
+        use_double=False, verbosity_level=0, max_num_iterations=3,
+        solver_type=SolverType(solver), pair_gather="obs"), device="cpu")
+    assert s.final_cost.all.error < s.initial_cost.all.error, solver
 rootba_io.save_rootba(p, "p.cereal")
 rootba_io.load_rootba("p.cereal")
 p.save_bal("p.txt")
@@ -186,16 +184,50 @@ def test_cli_help_and_dump_config(capsys):
 
 @pytest.mark.parametrize("argv", [["--timing-calibration-interval", "1"],
                                   ["--host-fused-attempt", "false"],
-                                  ["--defer-stage-sync", "false"]])
+                                  ["--defer-stage-sync", "false"],
+                                  ["--pair-gather", "strips"],
+                                  ["--strip-min-group", "0"],
+                                  ["--strip-auto-obs-threshold", "1"]])
 def test_cli_rejects_knobs_of_unported_paths(argv, capsys):
     """The port's config has no options for paths it does not have, so
-    such a flag is an argparse error instead of being ignored."""
+    such a flag is an argparse error instead of being ignored; the JAX
+    package's "strips" pair gather is not one of --pair-gather's
+    choices."""
     from rootba_tpu_torch.cli.bal import run_app
 
     with pytest.raises(SystemExit) as e:
         run_app("test", ["--dump-config", *argv])
     assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if argv[0] == "--pair-gather":
+        assert "invalid choice: 'strips'" in err
+    else:
+        assert "unrecognized arguments" in err
+
+
+@pytest.mark.parametrize("where", ["options", "config_file"])
+def test_strips_gather_is_rejected(where, tmp_path):
+    """pair_gather="strips", from SolverOptions or from a config file,
+    raises the ValueError that names the two gathers (a config file's
+    value no longer reaches the solver unchecked)."""
+    from rootba_tpu_torch.cli.bal import run_app
+    from rootba_tpu_torch.config.options import SolverOptions
+
+    allowed = r"is not one of \('stream', 'obs'\)"
+    if where == "options":
+        with pytest.raises(ValueError,
+                           match="pair_gather=.strips. " + allowed):
+            SolverOptions(pair_gather="strips")
+        return
+    (tmp_path / "rootba_config.toml").write_text(
+        '[solver]\npair_gather = "strips"\n')
+    cwd = os.getcwd()
+    try:
+        with pytest.raises(ValueError,
+                           match="solver.pair_gather=.strips. " + allowed):
+            run_app("test", ["-C", str(tmp_path), "--dump-config"])
+    finally:
+        os.chdir(cwd)
 
 
 @pytest.mark.parametrize("ndev", [1, 2])
@@ -230,8 +262,7 @@ def test_cli_num_devices(ndev, tmp_path, capsys):
 def test_config_file_keys_of_the_reference(tmp_path, capsys):
     """A config file with the JAX package's keys debug, num_threads,
     use_householder_marginalization, staged_execution and reduction_alg,
-    the checkpoint and CERES-baseline keys and the strips gather's
-    strip_min_group and strip_auto_obs_threshold, loads (no unused-key
+    and the checkpoint and CERES-baseline keys, loads (no unused-key
     exit), and --dump-config prints them; their flags parse."""
     from rootba_tpu_torch.cli.bal import run_app
 
@@ -242,8 +273,7 @@ def test_config_file_keys_of_the_reference(tmp_path, capsys):
         'checkpoint_path = "ck.npz"\ncheckpoint_interval = 3\n'
         'baseline_method = "lm"\ngradient_tolerance = 1e-10\n'
         "parameter_tolerance = 1e-09\nmin_lm_diagonal = 1e-05\n"
-        "max_lm_diagonal = 1e+20\nstrip_min_group = 0\n"
-        "strip_auto_obs_threshold = 1000\n")
+        "max_lm_diagonal = 1e+20\n")
     cwd = os.getcwd()
     try:
         assert run_app("test", ["-C", str(tmp_path), "--dump-config"]) == 0
@@ -255,22 +285,16 @@ def test_config_file_keys_of_the_reference(tmp_path, capsys):
                      "checkpoint_interval = 3", 'baseline_method = "lm"',
                      "gradient_tolerance = 1e-10",
                      "parameter_tolerance = 1e-09",
-                     "min_lm_diagonal = 1e-05", "max_lm_diagonal = 1e+20",
-                     "strip_min_group = 0",
-                     "strip_auto_obs_threshold = 1000"):
+                     "min_lm_diagonal = 1e-05", "max_lm_diagonal = 1e+20"):
             assert line in out, line
         assert run_app("test", ["-C", str(tmp_path), "--dump-config",
                                 "--reduction-alg", "2", "--num-threads",
                                 "5", "--checkpoint-interval", "2",
-                                "--baseline-method", "trf",
-                                "--strip-min-group", "16",
-                                "--strip-auto-obs-threshold", "7"]) == 0
+                                "--baseline-method", "trf"]) == 0
         out = capsys.readouterr().out
         assert "reduction_alg = 2" in out and "num_threads = 5" in out
         assert ("checkpoint_interval = 2" in out
                 and 'baseline_method = "trf"' in out)
-        assert ("strip_min_group = 16" in out
-                and "strip_auto_obs_threshold = 7" in out)
     finally:
         os.chdir(cwd)
 

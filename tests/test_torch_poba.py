@@ -192,7 +192,7 @@ def test_e0_assembly_and_jacobi(lin_pair):
         _close(g, r, tol, "Hll_inv")
     td, tb = lp["td"], lp["tb"]
     _close(tsc.e0_assemble_dense(lp["tlins"], td.buckets, lp["th"],
-                                 td.pair_index, td.cam_strips, N), jE0,
+                                 td.pair_index, td.cam_stream, N), jE0,
            tol, "E0 dense")
     jac = tsc.jp_gram_blockdiag(lp["tlins"], td.buckets, lp["tlam"], N)
     _close(chol9(jac), jchol, tol, "chol of jp_gram_blockdiag")
@@ -207,7 +207,7 @@ def test_e0_assembly_and_jacobi(lin_pair):
         l, b, h, pc, cf, c, N, cam_strips=cs, symmetric=True))(
         lp["jlins"], buckets, js2.Hll_inv, pair_csr, cam_flat, csr, cstrips)
     tE, tEd = tsc.e0_assemble_bsr(lp["tlins"], tb.buckets, lp["th"],
-                                  tb.pair_index, tb.cam_strips, N,
+                                  tb.pair_index, tb.cam_stream, N,
                                   symmetric=True)
     _close(tE, jE, tol, "neg E0 half table")
     _close(tEd, jEd, tol, "neg E0 diag")

@@ -202,8 +202,8 @@ def test_attempt_matches_jax(jax_attempt, synthetic_problem):
 def test_routes(synthetic_problem):
     """Dense RCS up to dense_rcs_max_cameras, BSR above it (the half
     table past bsr_pack_max_gb), the scatter assembly / implicit sweep
-    at 0; the strips and obs pair gathers build their indices
-    (tests/test_torch_strips.py holds them to the JAX package)."""
+    at 0; the stream and obs pair gathers build their indices
+    (tests/test_torch_pair_gathers.py holds them to the JAX package)."""
     tbp = t_bucketize(synthetic_problem, pow2_from=9)
     for solver in (TSolver.SCHUR_COMPLEMENT,
                    TSolver.POWER_SCHUR_COMPLEMENT):
@@ -219,7 +219,7 @@ def test_routes(synthetic_problem):
                            torch.float64, CPU)
             assert (lin.dense_rcs, lin.bsr_rcs, lin.bsr_sym) == (
                 dense, bsr, sym), (solver, kw)
-        for gather, index in (("strips", tlz.PairStripsIndex),
+        for gather, index in (("stream", tlz.PairStreamIndex),
                               ("obs", tlz.PairCsrIndex)):
             lin = t_create(tbp, TOptions(solver_type=solver,
                                          pair_gather=gather),
@@ -276,7 +276,7 @@ def test_sc_rhs_hll_and_dense_assembly(lin_pair):
     lp, tol = lin_pair, lin_pair["tol"]
     js2, jH, jchol = lp["jaux"][:3]
     td = lp["td"]
-    for kw in (dict(cam_csr=td.cam_csr), dict(cam_strips=td.cam_strips),
+    for kw in (dict(cam_csr=td.cam_csr), dict(cam_stream=td.cam_stream),
                {}):
         tb, th = tsc.sc_rhs_and_hll(lp["tlins"], td.buckets, lp["tlam"],
                                     lp["N"], **kw)
@@ -284,7 +284,7 @@ def test_sc_rhs_hll_and_dense_assembly(lin_pair):
         for g, r in zip(th, js2.Hll_inv):
             _close(g, r, tol, "Hll_inv")
     tH, tdiag, tb, _ = tsc.sc_assemble_dense(
-        lp["tlins"], td.buckets, td.pair_index, td.cam_strips, lp["tlam"],
+        lp["tlins"], td.buckets, td.pair_index, td.cam_stream, lp["tlam"],
         lp["N"], cam_csr=td.cam_csr)
     _close(tH, jH, tol, "dense H")
     _close(chol9(tdiag), jchol, tol, "chol of the diagonal blocks")
@@ -323,7 +323,7 @@ def test_sc_assemble_bsr(lin_pair):
         lp["jlins"], buckets, pair_csr, cam_flat, csr, lp["jlam"], cstrips)
     t = lp["tb"]
     tH, tdiag, tb, _ = tsc.sc_assemble_bsr(
-        lp["tlins"], t.buckets, t.pair_index, t.cam_strips, lp["tlam"], N,
+        lp["tlins"], t.buckets, t.pair_index, t.cam_stream, lp["tlam"], N,
         cam_csr=t.cam_csr, symmetric=True)
     _close(tH, jH, tol, "bsr half table")
     _close(tdiag, jdiag, tol, "bsr diag")
@@ -491,7 +491,7 @@ def test_stream_reducers_equal_segment_sums(synthetic_problem):
     tbp = t_bucketize(synthetic_problem, pow2_from=9)
     lin = t_create(tbp, TOptions(solver_type=TSolver.SCHUR_COMPLEMENT),
                    torch.float64, CPU)
-    assert any(tr is not None for st in lin.cam_strips.run_tree
+    assert any(tr is not None for st in lin.cam_stream.run_tree
                for tr in st), "no camera with two runs: no tree to test"
     rng = np.random.default_rng(7)
     A = tuple(torch.as_tensor(rng.normal(size=(b.cam_idx.shape[0],
@@ -501,8 +501,8 @@ def test_stream_reducers_equal_segment_sums(synthetic_problem):
     N = lin.num_cameras
     ps = lin.pair_index
     gram = tlz.cam_gram_stream([(A, A, 1.0), (A, B, -1.0)], lin.buckets,
-                               lin.cam_strips)
-    rows = tlz.cam_reduce_stream(A, lin.buckets, lin.cam_strips)
+                               lin.cam_stream)
+    rows = tlz.cam_reduce_stream(A, lin.buckets, lin.cam_stream)
     pairs = tlz.pair_outer_stream(A, B, lin.buckets, ps)
     g_ref = torch.zeros((N, 81), dtype=torch.float64)
     r_ref = torch.zeros((N, 27), dtype=torch.float64)
